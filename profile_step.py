@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Where the time of the port's flagship step goes, on the card.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 profile_step.py [--repeats 5] [--out profile_step.txt]
+
+For shapes (a) hop 64, 512 windows and (b) hop 1, 20,000 windows of
+`chip_smoke.py` (same configuration, same planted series), it warms the
+step (`extract_cycles_batch` + `decode_causal`) up, times `repeats`
+untraced steps on the host clock around a synchronised step, then traces
+one step with `torch.profiler` and prints, per shape: the untraced step
+times and their median, the device kernel time of the traced step, the
+device's busy share (kernel time over the untraced median), the number
+of kernels launched, the peak device memory, the device time of each
+hand-written kernel, and the operators with the most device time. With
+`--out`, the profiler's full tables are written to that file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent
+HAND_KERNELS = ("jacobi_eigh_kernel", "music_select_kernel")
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--repeats", type=int, default=5)
+    parser.add_argument("--out", type=Path, default=None)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: no CUDA device")
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import SEED, WINDOW, planted_series
+    from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig,
+                                    decode_causal, extract_cycles_batch)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
+                        method=Method.MUSIC, ar_order=10)
+    rcfg = ReconstructConfig()
+    shapes = {"a": (64, 512, SEED), "b": (1, 20000, SEED + 1)}
+    tables = []
+
+    def step(x, hop):
+        return decode_causal(extract_cycles_batch(x, cfg, hop=hop), rcfg)
+
+    for name, (hop, nwin, seed) in shapes.items():
+        x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, seed)).to(dev)
+        for _ in range(3):
+            step(x, hop)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for _ in range(args.repeats):
+            t0 = time.perf_counter()
+            step(x, hop)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(x, hop)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        device = [e for e in events
+                  if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+        kernel_ms = sum(e.self_device_time_total for e in device) / 1e3
+        launches = sum(e.count for e in device)
+        hand = {k: sum(e.self_device_time_total for e in device if k in e.key) / 1e3
+                for k in HAND_KERNELS}
+        ops = {}
+        for e in events:
+            if e.device_type.name == "CPU" and e.key.startswith("aten::") \
+                    and e.self_device_time_total > 0:
+                ops[e.key] = ops.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+        wall = statistics.median(walls)
+        print(json.dumps({
+            "shape": name, "hop": hop, "windows": nwin, "card": card,
+            "step_ms_untraced": walls, "step_ms_median": wall,
+            "device_kernel_ms": kernel_ms, "busy_share": kernel_ms / wall,
+            "kernel_launches": launches, "peak_mib": peak_mib,
+            "hand_kernel_ms": hand, "top_ops_device_ms": top}), flush=True)
+        tables.append(f"== shape ({name}) hop {hop}, {nwin} windows [{card}]\n"
+                      + events.table(sort_by="self_device_time_total", row_limit=40))
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text("\n".join(tables))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,147 @@
+"""Parity of the port's plain candidate selection (the CPU twin of the CUDA
+kernel `csrc/music_select.cu`) with the JAX package.
+
+1. Against `select_candidates_pallas(..., interpret=True)` on the same
+   numpy pseudospectrum and band power: bitwise on all five outputs.
+2. Against `music_candidates(upto="prerank")` fed the JAX package's own
+   series-level path, with the port fed its own: the discrete outputs
+   (valid, gidx, the grid frequencies, step0) exactly equal on planted
+   windows. The pseudospectrum values are compared where they stand above
+   their band mean (>= 1), at rtol 1e-2: at a sharp peak the float32
+   sum-of-lags denominator cancels to a few digits, and in a band with no
+   cycle the noise/signal split of near-equal eigenvalues is itself
+   ill-defined, so low values may differ by tens of percent.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wavespec_tpu import extract as jex
+from wavespec_tpu.analyze import music as jmu
+from wavespec_tpu.kernels.music_select_pallas import select_candidates_pallas
+from wavespec_tpu.kernels.mxu_fft import rfft_mxu
+from wavespec_tpu.ops.detrend import ehlers_highpass_detrend, ehlers_highpass_detrend_mxu
+from wavespec_tpu.ops.spectrum import band_indices
+from wavespec_tpu_torch import extract as pex
+from wavespec_tpu_torch.analyze import music as pmu
+from wavespec_tpu_torch.kernels.music_select import select_candidates
+from wavespec_tpu_torch.ops.detrend import HighpassMXU
+from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
+
+SMALL = dict(window=1024, top_k=2, min_period=18.0, max_period=52.0, ar_order=10)
+WIDE = dict(window=1024, top_k=4, min_period=9.0, max_period=200.0, ar_order=10)
+
+
+def _windows(cfg, n_win, seed):
+    rng = np.random.default_rng(seed)
+    n = cfg.window
+    t = np.arange(n)
+    rows = [
+        np.cumsum(0.05 * rng.standard_normal(n))
+        + 2.0 * np.sin(2 * np.pi * t / (20 + 3 * i) + rng.uniform(0, 6))
+        + 1.0 * np.sin(2 * np.pi * t / (110 + 7 * i))
+        for i in range(n_win)
+    ]
+    w = jnp.asarray(np.stack(rows), jnp.float32)
+    w = w - w[..., :1]
+    return ehlers_highpass_detrend(w, jmu.music_hp_period(cfg))
+
+
+def _stage_inputs(cfg, n_win, seed):
+    windows = _windows(cfg, n_win, seed)
+    pseudo = jmu.music_pseudospectrum(windows, cfg)[0]
+    k_min, k_max = band_indices(cfg.window, cfg.min_period, cfg.max_period)
+    spec = rfft_mxu(windows, max_bins=k_max + 1)
+    band_power = (jnp.real(spec) ** 2 + jnp.imag(spec) ** 2)[..., k_min: k_max + 1]
+    return np.asarray(pseudo), np.asarray(band_power)
+
+
+@pytest.mark.parametrize("kw,n_win,seed", [(SMALL, 1, 9), (SMALL, 3, 1), (WIDE, 2, 4)],
+                         ids=["small-1", "small-3", "wide-2"])
+def test_plain_matches_pallas_bitwise(kw, n_win, seed):
+    jcfg = jex.ExtractConfig(**kw)
+    pcfg = pex.ExtractConfig(**kw)
+    pseudo, band_power = _stage_inputs(jcfg, n_win, seed)
+    ref = select_candidates_pallas(jnp.asarray(pseudo), jnp.asarray(band_power),
+                                   jcfg, interpret=True)
+    got = select_candidates(torch.from_numpy(pseudo), torch.from_numpy(band_power), pcfg,
+                            pmu.GridTables(pcfg))
+    for key in ("freq", "valid", "gidx", "vals", "step0"):
+        r = np.asarray(ref[key])
+        g = got[key].numpy()
+        assert g.shape == r.shape and g.dtype == r.dtype, key
+        np.testing.assert_array_equal(g, r, err_msg=key)
+
+
+def _random_inputs(cfg, lead, seed):
+    """Positive random pseudospectrum / band power rows of the right widths."""
+    tables = pmu.GridTables(cfg)
+    rng = np.random.default_rng(seed)
+    kb = tables.k_max - tables.k_min + 1
+    pseudo = rng.gamma(0.5, size=(*lead, tables.freqs.shape[0])).astype(np.float32)
+    band_power = rng.gamma(0.5, size=(*lead, kb)).astype(np.float32)
+    return torch.from_numpy(pseudo), torch.from_numpy(band_power)
+
+
+def test_plain_leading_dims():
+    pcfg = pex.ExtractConfig(**SMALL)
+    pseudo, band_power = _random_inputs(pcfg, (4,), 2)
+    tables = pmu.GridTables(pcfg)
+    flat = select_candidates(pseudo, band_power, pcfg, tables)
+    nested = select_candidates(pseudo.reshape(2, 2, -1), band_power.reshape(2, 2, -1), pcfg,
+                               tables)
+    for key in flat:
+        assert nested[key].shape == (2, 2, 2 * pcfg.top_k)
+        assert torch.equal(nested[key].reshape(flat[key].shape), flat[key])
+
+
+def test_plain_matches_music_candidates_on_planted_series():
+    kw = dict(window=1024, top_k=2, min_period=10.0, max_period=200.0, ar_order=10)
+    jcfg, pcfg = jex.ExtractConfig(**kw), pex.ExtractConfig(**kw)
+    hop = 64
+    rng = np.random.default_rng(5)
+    t = np.arange(jcfg.window + 5 * hop)
+    x = (100.0 + np.cumsum(0.05 * rng.standard_normal(t.size))
+         + 3.0 * np.sin(2 * np.pi * t / 50) + 2.0 * np.sin(2 * np.pi * t / 120))
+    x = (x - x[0]).astype(np.float32)
+
+    hp = ehlers_highpass_detrend_mxu(jnp.asarray(x), (jmu.music_hp_period(jcfg),))[0]
+    windows = jex.frame_series(hp, jcfg.window, hop)
+    bw = jmu.band_precondition_windows(hp, jcfg, hop)
+    k_min, k_max = band_indices(jcfg.window, jcfg.min_period, jcfg.max_period)
+    ref = jmu.music_candidates(windows, jcfg, band_windows=bw,
+                               seed_spec=rfft_mxu(windows, max_bins=k_max + 1),
+                               upto="prerank")
+
+    tables = pmu.GridTables(pcfg)
+    php = HighpassMXU((pmu.music_hp_period(pcfg),))(torch.from_numpy(x))[0]
+    pw = pex.frame_series(php, pcfg.window, hop).contiguous()
+    pbw = pmu.band_precondition_windows(php, pcfg, hop,
+                                        HighpassMXU(pmu.band_hp_periods(pcfg)))
+    pseudo, _ = pmu.music_pseudospectrum(pbw, pcfg, tables)
+    band_power = power_spectrum(rfft_band(pw, k_max + 1))[..., k_min: k_max + 1]
+    got = select_candidates(pseudo, band_power.contiguous(), pcfg, tables)
+
+    for key in ("valid", "gidx", "freq", "step0"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), err_msg=key)
+    peak = np.asarray(ref["vals"]) >= 1.0
+    assert peak.any()
+    np.testing.assert_allclose(got["vals"].numpy()[peak], np.asarray(ref["vals"])[peak],
+                               rtol=1e-2)
+
+
+def test_cpu_wrapper_leaves_launch_count():
+    pcfg = pex.ExtractConfig(**SMALL)
+    before = select_candidates.launches
+    select_candidates(*_random_inputs(pcfg, (3,), 3), pcfg, pmu.GridTables(pcfg))
+    assert select_candidates.launches == before
+
+
+def test_band_power_width_checked():
+    pcfg = pex.ExtractConfig(**SMALL)
+    tables = pmu.GridTables(pcfg)
+    g = tables.freqs.shape[0]
+    with pytest.raises(ValueError, match="band_power width"):
+        select_candidates(torch.ones(1, g), torch.ones(1, 3), pcfg, tables)
