@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship step goes, on the card.
+"""Where the time of the port's main paths goes, on the card.
 
 Run from the repository root on a machine with a CUDA device:
 
     python3 profile_step.py [--repeats 5] [--out profile_step.txt]
 
-For shapes (a) hop 64, 512 windows and (b) hop 1, 20,000 windows of
-`chip_smoke.py` (same configuration, same planted series), it warms the
-step (`extract_cycles_batch` + `decode_causal`) up, times `repeats`
+For the shapes of `chip_smoke.py` (same configurations, same planted
+series): the flagship MUSIC step (`extract_cycles_batch` +
+`decode_causal`) at (a) hop 64, 512 windows and (b) hop 1, 20,000
+windows, and the v7.57 analytics (`run_v757_batch`) at (c) 128 symbols x
+512 frames, window 4096. Per shape it warms the step up, times `repeats`
 untraced steps on the host clock around a synchronised step, then traces
-one step with `torch.profiler` and prints, per shape: the untraced step
-times and their median, the device kernel time of the traced step, the
-device's busy share (kernel time over the untraced median), the number
-of kernels launched, the peak device memory, the device time of each
-hand-written kernel, and the operators with the most device time. With
-`--out`, the profiler's full tables are written to that file.
+one step with `torch.profiler` and prints: the untraced step times and
+their median, the device kernel time of the traced step, the device's
+busy share (kernel time over the untraced median), the number of kernels
+launched, the peak device memory, the device time of each hand-written
+kernel, and the operators with the most device time. With `--out`, the
+profiler's full tables are written to that file.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
-HAND_KERNELS = ("jacobi_eigh_kernel", "music_select_kernel")
+HAND_KERNELS = ("jacobi_eigh_kernel", "music_select_kernel", "band_dft_kernel",
+                "tracker_kernel", "v757_tail_kernel")
 
 
 def main() -> None:
@@ -42,9 +45,10 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import SEED, WINDOW, planted_series
-    from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig,
-                                    decode_causal, extract_cycles_batch)
+    from chip_smoke import (SEED, V757_FRAMES, V757_SYMBOLS, WINDOW, bench_series,
+                            planted_series)
+    from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig, V757Config,
+                                    decode_causal, extract_cycles_batch, run_v757_batch)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -57,27 +61,35 @@ def main() -> None:
     cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
                         method=Method.MUSIC, ar_order=10)
     rcfg = ReconstructConfig()
-    shapes = {"a": (64, 512, SEED), "b": (1, 20000, SEED + 1)}
     tables = []
 
-    def step(x, hop):
-        return decode_causal(extract_cycles_batch(x, cfg, hop=hop), rcfg)
-
-    for name, (hop, nwin, seed) in shapes.items():
+    def music_step(hop, nwin, seed):
         x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, seed)).to(dev)
+        return lambda: decode_causal(extract_cycles_batch(x, cfg, hop=hop), rcfg)
+
+    xc = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES)).to(dev)
+    vcfg = V757Config()
+    shapes = {
+        "a": ("MUSIC step, hop 64, 512 windows", music_step(64, 512, SEED)),
+        "b": ("MUSIC step, hop 1, 20000 windows", music_step(1, 20000, SEED + 1)),
+        "c": (f"run_v757_batch, {V757_SYMBOLS} symbols x {V757_FRAMES} frames, window "
+              f"{WINDOW}", lambda: run_v757_batch(xc, vcfg)),
+    }
+
+    for name, (what, step) in shapes.items():
         for _ in range(3):
-            step(x, hop)
+            step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         walls = []
         for _ in range(args.repeats):
             t0 = time.perf_counter()
-            step(x, hop)
+            step()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            step(x, hop)
+            step()
             torch.cuda.synchronize()
         events = prof.key_averages()
         device = [e for e in events
@@ -94,12 +106,12 @@ def main() -> None:
         top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
         wall = statistics.median(walls)
         print(json.dumps({
-            "shape": name, "hop": hop, "windows": nwin, "card": card,
+            "shape": name, "what": what, "card": card,
             "step_ms_untraced": walls, "step_ms_median": wall,
             "device_kernel_ms": kernel_ms, "busy_share": kernel_ms / wall,
             "kernel_launches": launches, "peak_mib": peak_mib,
             "hand_kernel_ms": hand, "top_ops_device_ms": top}), flush=True)
-        tables.append(f"== shape ({name}) hop {hop}, {nwin} windows [{card}]\n"
+        tables.append(f"== shape ({name}) {what} [{card}]\n"
                       + events.table(sort_by="self_device_time_total", row_limit=40))
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)

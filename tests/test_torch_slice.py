@@ -240,7 +240,7 @@ def test_import_never_loads_jax():
 
 def test_cpu_path_launches_no_kernel():
     before = (jacobi_eigh_unsorted.launches, select_candidates.launches)
-    fn, (series,) = entry()
+    fn, (series,) = entry(device="cpu")
     attrs, wave, eta = fn(series)
     assert attrs.shape == (8, 4, 15) and wave.shape == eta.shape == (8, 2)
     assert torch.isfinite(attrs).all()

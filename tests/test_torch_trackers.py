@@ -1,0 +1,115 @@
+"""The port's tracker (`wavespec_tpu_torch.analyze.trackers`, the plain
+version of kernel B4) against the JAX package's `track_frames` (the XLA
+scan) and its Pallas kernel in interpret mode, on the same numpy
+candidate streams: all 11 per-frame outputs and the final state equal,
+at J = 24 and at an all-bins J above one Pallas slab, for a symbol batch,
+and across a resume split.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wavespec_tpu.analyze import trackers as jtr
+from wavespec_tpu.kernels.tracker_pallas import track_frames_pallas
+from wavespec_tpu_torch.analyze import trackers as ptr
+from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
+
+
+def candidate_stream(t, j, seed, batch=()):
+    """Candidates with near-tolerance neighbours, dropouts, power
+    inversions and short leak periods (as tests/test_trackers.py)."""
+    rng = np.random.default_rng(seed)
+    shape = (*batch, t, j)
+    base = rng.choice([20.0, 21.0, 35.0, 36.5, 60.0, 9.0], size=shape)
+    periods = (base * (1 + 0.02 * rng.standard_normal(shape))).astype(np.float32)
+    powers = rng.gamma(2.0, 2.0, size=shape).astype(np.float32)
+    valid = rng.random(shape) > 0.25
+    fft = (4096 / np.maximum(periods, 1.0)).astype(np.int32)
+    periods = np.where(valid, periods, 0.0).astype(np.float32)
+    powers = np.where(valid, powers, 0.0).astype(np.float32)
+    return periods, powers, fft, valid
+
+
+def jax_state_np(st):
+    return {f: np.asarray(getattr(st, f)) for f in jtr.TrackerState._fields}
+
+
+def assert_same(got_out, got_state, want_out, want_state):
+    assert set(got_out) == set(want_out)
+    for k in want_out:
+        g = got_out[k].numpy()
+        assert g.dtype == np.asarray(want_out[k]).dtype, k
+        np.testing.assert_array_equal(g, np.asarray(want_out[k]), err_msg=k)
+    for f in ptr.TrackerState._fields:
+        np.testing.assert_array_equal(getattr(got_state, f).numpy(), want_state[f], err_msg=f)
+
+
+CASES = {
+    # (t, j, seed, batch, capacity)
+    "j24": (40, 24, 3, (), 64),
+    "all_bins": (24, 41, 5, (), 16),
+    "batch": (30, 7, 7, (3,), 16),
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def stream(request):
+    t, j, seed, batch, cap = CASES[request.param]
+    frames = candidate_stream(t, j, seed, batch)
+    jcfg = jtr.TrackerConfig(capacity=cap, leak_min_bars=2)
+    want_xla = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
+    want_pallas = track_frames_pallas(*map(jnp.asarray, frames), jcfg, interpret=True)
+    pcfg = ptr.TrackerConfig(**dataclasses.asdict(jcfg))
+    got = ptr.track_frames(*map(torch.from_numpy, frames), pcfg)
+    return frames, pcfg, got, want_xla, want_pallas
+
+
+@pytest.mark.parametrize("ref", ["xla", "pallas"])
+def test_track_frames_matches_jax(stream, ref):
+    _, _, (got, gstate), want_xla, want_pallas = stream
+    want, wstate = want_xla if ref == "xla" else want_pallas
+    assert_same(got, gstate, want, jax_state_np(wstate))
+
+
+def test_track_frames_resume_matches_one_shot(stream):
+    frames, cfg, (want, wstate), _, _ = stream
+    cut = frames[0].shape[-2] // 2 + 1
+    tensors = [torch.from_numpy(f) for f in frames]
+    o1, s1 = ptr.track_frames(*(f[..., :cut, :] for f in tensors), cfg)
+    o2, s2 = ptr.track_frames(*(f[..., cut:, :] for f in tensors), cfg, init=s1)
+    got = {k: torch.cat([o1[k], o2[k]], dim=-2) for k in o1}
+    assert_same(got, s2, {k: v.numpy() for k, v in want.items()},
+                {f: getattr(wstate, f).numpy() for f in ptr.TrackerState._fields})
+
+
+def test_resume_from_jax_state_matches_jax():
+    """A state handed over from the JAX package resumes the port's
+    tracker where the JAX run stopped."""
+    frames = candidate_stream(30, 6, 11)
+    jcfg = jtr.TrackerConfig(capacity=16)
+    cut = 13
+    want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
+    _, s1 = jtr.track_frames(*(jnp.asarray(f[:cut]) for f in frames), cfg=jcfg)
+    init = ptr.TrackerState(*(torch.from_numpy(np.array(v)) for v in s1))
+    got, gstate = ptr.track_frames(*(torch.from_numpy(f[cut:]) for f in frames),
+                                   ptr.TrackerConfig(capacity=16), init=init)
+    tail = {k: np.asarray(v)[cut:] for k, v in want.items()}
+    assert_same(got, gstate, tail, jax_state_np(wstate))
+
+
+def test_sequential_match_is_not_ported():
+    frames = [torch.from_numpy(f) for f in candidate_stream(3, 4, 0)]
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        ptr.track_frames(*frames, ptr.TrackerConfig(sequential_match=True))
+
+
+def test_cpu_tensors_take_the_plain_version():
+    frames = [torch.from_numpy(f) for f in candidate_stream(5, 4, 1)]
+    before = track_frames_kernel.launches
+    out, _ = track_frames_kernel(*frames, ptr.TrackerConfig(capacity=16))
+    assert track_frames_kernel.launches == before
+    assert out["slot_uid"].dtype == torch.int32 and out["slot_valid"].dtype == torch.bool

@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of wavespec_tpu: the flagship MUSIC extraction and the
-causal decode, with hand-written CUDA kernels for the Jacobi eigh and the
-MUSIC candidate selection. Imports torch and numpy, never jax."""
+causal decode, and the v7.57 multi-symbol analytics, with hand-written
+CUDA kernels for the Jacobi eigh, the MUSIC candidate selection, the band
+DFT, the trackers and the v7.57 tail. Imports torch and numpy, never
+jax."""
 
 from wavespec_tpu_torch.extract import (
     ExtractConfig,
@@ -9,6 +11,7 @@ from wavespec_tpu_torch.extract import (
     config_from_dict,
     extract_cycles_batch,
 )
+from wavespec_tpu_torch.pipeline.v757 import V757Config, run_v757, run_v757_batch
 from wavespec_tpu_torch.reconstruct import ReconstructConfig, decode_causal
 
 __all__ = [
@@ -16,7 +19,10 @@ __all__ = [
     "Method",
     "MusicExtractor",
     "ReconstructConfig",
+    "V757Config",
     "config_from_dict",
     "decode_causal",
     "extract_cycles_batch",
+    "run_v757",
+    "run_v757_batch",
 ]

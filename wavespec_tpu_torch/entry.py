@@ -5,12 +5,13 @@ from __future__ import annotations
 import torch
 
 
-def entry(device: torch.device | str = "cpu"):
+def entry(device: torch.device | str = "cuda"):
     """(fn, example_args): the flagship pipeline step.
 
     `fn(series) -> (attrs, wave, eta_seconds)` runs MUSIC extraction at
     window 4096, top_k 4, band [9, 200], ar_order 10, hop 16, then the
-    causal decode. The example series lies on `device`.
+    causal decode. The example series lies on `device`, the card unless
+    the caller asks for the CPU.
     """
     from wavespec_tpu_torch.extract import ExtractConfig, Method, extract_cycles_batch
     from wavespec_tpu_torch.reconstruct import ReconstructConfig, decode_causal

@@ -22,6 +22,7 @@ import enum
 import math
 from functools import lru_cache
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -124,21 +125,31 @@ class ExtractConfig:
             )
 
 
-_ENUM_FIELDS = {"method": Method, "detrend": DetrendMode, "taper": WindowType}
+def _build_config(cls, d: dict):
+    """`cls(**d)`, with enum fields rebuilt from their integer values and
+    nested config fields (a dataclass default) from their dicts."""
+    defaults = cls()
+    kw = {}
+    for key, v in d.items():
+        default = getattr(defaults, key)
+        if dataclasses.is_dataclass(default):
+            v = _build_config(type(default), v)
+        elif isinstance(default, enum.Enum):
+            v = type(default)(int(v))
+        kw[key] = v
+    return cls(**kw)
 
 
 def config_from_dict(d: dict):
-    """The port's `ExtractConfig` or `reconstruct.ReconstructConfig` from
-    the field dict of either (e.g. `dataclasses.asdict` of a JAX config).
-    Enum fields are rebuilt from their integer values."""
+    """The port's config whose fields are the keys of `d` (e.g.
+    `dataclasses.asdict` of a JAX `ExtractConfig`, `ReconstructConfig` or
+    `V757Config`, nested configs included)."""
+    from wavespec_tpu_torch.pipeline.v757 import V757Config
     from wavespec_tpu_torch.reconstruct import ReconstructConfig
 
-    for cls in (ExtractConfig, ReconstructConfig):
-        names = {f.name for f in dataclasses.fields(cls)}
-        if set(d) == names:
-            kw = {key: _ENUM_FIELDS[key](int(v)) if key in _ENUM_FIELDS else v
-                  for key, v in d.items()}
-            return cls(**kw)
+    for cls in (ExtractConfig, ReconstructConfig, V757Config):
+        if set(d) == {f.name for f in dataclasses.fields(cls)}:
+            return _build_config(cls, d)
     raise ValueError(f"fields {sorted(d)} match no config class")
 
 
@@ -205,6 +216,43 @@ def frame_series(series: torch.Tensor, window: int, hop: int) -> torch.Tensor:
     """Strided window view ``[..., nwin, window]`` of ``[..., n]``, window w
     covering ``series[..., w*hop : w*hop + window]`` (no copy)."""
     return series.unfold(-1, window, hop)
+
+
+@lru_cache(maxsize=8)
+def _series_highpass(trend_period: int, device: torch.device):
+    from wavespec_tpu_torch.ops.detrend import HighpassMXU
+
+    return HighpassMXU((trend_period,)).to(device)
+
+
+def frame_highpassed(series: torch.Tensor, window: int, hop: int,
+                     trend_period: int) -> torch.Tensor:
+    """Per-window cold-start Ehlers high-pass of every rolling window
+    ``[..., nwin, window]`` (float32), from one series-level filter plus a
+    rank-1 correction (counterpart of `wavespec_tpu/extract.py::
+    frame_highpassed`).
+
+    The per-window filter differs from the series-level one only in its
+    first step, and a one-pole filter carries that difference as a
+    geometric decay: ``detr_w[j] = hp_s[s0 + j] - alpha^j * delta_w`` with
+    ``delta_w = 2c p[s0] - trend_s[s0]``. The series-level filter is
+    `HighpassMXU` at `trend_period` (about 1e-6 relative of the JAX
+    package's scan); ``alpha^j`` is built in float64 and cast.
+    """
+    wf = 2.0 * np.pi / trend_period
+    alpha = (1.0 - np.sin(wf)) / np.cos(wf)
+    c = (1.0 - alpha) / 2.0
+    aj = torch.from_numpy((alpha ** np.arange(window)).astype(np.float32))
+    series = series.to(torch.float32)
+    hp_s = _series_highpass(trend_period, series.device)(series)[..., 0, :]
+    trend_s = series - hp_s
+    framed = frame_series(hp_s, window, hop)
+    nwin = framed.shape[-2]
+    p0 = series[..., ::hop][..., :nwin]
+    t0 = trend_s[..., ::hop][..., :nwin]
+    delta = float(np.float32(2.0 * c)) * p0 - t0
+    out = delta[..., None] * aj.to(series.device)
+    return torch.sub(framed, out, out=out)   # one window-sized buffer
 
 
 def _require_music_slice(cfg: ExtractConfig) -> None:

@@ -1,0 +1,113 @@
+"""Wrapper of the CUDA tracker kernel (`csrc/tracker.cu`), which replaces
+`wavespec_tpu/kernels/tracker_pallas.py::track_frames_pallas`.
+
+`track_frames_kernel(periods, powers, fft_idx, valid, cfg, init)` takes
+candidates ``[..., T, J]`` (float32, float32, int32, bool, contiguous)
+and returns what `analyze.trackers.track_frames_plain` returns, bitwise
+equal to it. A CPU tensor goes to the plain version; a CUDA tensor goes
+to the kernel, with no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from wavespec_tpu_torch.analyze.trackers import (
+    SLOT_FIELDS, TrackerConfig, TrackerState, init_state, track_frames_plain)
+from wavespec_tpu_torch.kernels._build import check, load_library
+
+MAX_CAPACITY = 64
+MAX_SLOTS = 32
+MAX_CANDIDATES = 48 * 1024 // 20   # shared-memory staging, 20 bytes each
+
+_OUT_DTYPES = {"slot_period": torch.float32, "slot_power": torch.float32,
+               "slot_fft_index": torch.int32, "slot_valid": torch.bool,
+               "slot_uid": torch.int32, "leak_active": torch.bool,
+               "leak_uid": torch.int32, "leak_period": torch.float32,
+               "leak_power": torch.float32, "leak_fft_index": torch.int32,
+               "leak_bars": torch.int32}
+
+
+def _lib() -> ctypes.CDLL:
+    # --fmad=false: the tolerance expression must round as the plain
+    # PyTorch ops do (no contraction into fused multiply-adds).
+    lib = load_library("tracker", ("--fmad=false",))
+    fn = lib.tracker_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _require(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != device:
+        raise ValueError(f"{name}: need {dtype} {tuple(shape)} on {device}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
+                        fft_idx: torch.Tensor, valid: torch.Tensor,
+                        cfg: TrackerConfig, init: TrackerState | None = None):
+    """(dict of ``[..., T, S]`` slot outputs, final `TrackerState`)."""
+    if not periods.is_cuda:
+        return track_frames_plain(periods, powers, fft_idx, valid, cfg, init)
+
+    lead, (t_frames, j) = tuple(periods.shape[:-2]), tuple(periods.shape[-2:])
+    c, s = cfg.capacity, cfg.n_slots
+    if not (1 <= c <= MAX_CAPACITY and 1 <= s <= MAX_SLOTS and 1 <= j <= MAX_CANDIDATES):
+        raise ValueError(f"capacity {c}, slots {s}, candidates {j} outside the "
+                         f"kernel's {MAX_CAPACITY}, {MAX_SLOTS}, {MAX_CANDIDATES}")
+    dev = periods.device
+    for name, x, dt in (("periods", periods, torch.float32),
+                        ("powers", powers, torch.float32),
+                        ("fft_idx", fft_idx, torch.int32), ("valid", valid, torch.bool)):
+        _require(name, x, dt, periods.shape, dev)
+    b = 1
+    for d in lead:
+        b *= d
+
+    def state_like() -> TrackerState:
+        shapes = {"next_uid": lead}
+        dtypes = {"period": torch.float32, "power": torch.float32,
+                  "alive": torch.bool, "seen_now": torch.bool,
+                  "leak_active": torch.bool}
+        return TrackerState(*(
+            torch.empty(shapes.get(f, (*lead, c if i < 7 else s)),
+                        dtype=dtypes.get(f, torch.int32), device=dev)
+            for i, f in enumerate(TrackerState._fields)))
+
+    init_arg = None
+    if init is not None:
+        ref = state_like()
+        for f, x, r in zip(TrackerState._fields, init, ref):
+            _require(f"init.{f}", x, r.dtype, r.shape, dev)
+        init_arg = _ptrs(init)
+    outs = {k: torch.empty((*lead, t_frames, s), dtype=_OUT_DTYPES[k], device=dev)
+            for k in SLOT_FIELDS}
+    final = state_like()
+    if b and t_frames:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            status = _lib().tracker_launch(
+                _ptrs((periods, powers, fft_idx, valid)), init_arg,
+                _ptrs([outs[k] for k in SLOT_FIELDS]), _ptrs(final),
+                b, t_frames, j, c, s, cfg.tolerance_pct, cfg.max_inactive,
+                cfg.leak_period_ratio, cfg.leak_power_ratio, cfg.leak_min_bars,
+                cfg.leak_max_bars, stream)
+        check(status, "tracker_launch")
+        track_frames_kernel.launches += 1
+    else:
+        final = init if init is not None else init_state(cfg, lead, dev)
+    return outs, final
+
+
+track_frames_kernel.launches = 0

@@ -4,12 +4,16 @@
 The JAX package evaluates the rFFT as a four-step MXU matmul because its
 TPU runtime has no FFT lowering; here `torch.fft.rfft` (cuFFT on the card,
 pocketfft on the CPU) computes the full transform and the band is sliced.
+The v7.57 path instead takes the direct band DFT (`band_dft_plain`, the
+plain version of kernel B3, counterpart of `kernels/fused_dft.py`).
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 
@@ -33,3 +37,32 @@ def rfft_band(windows: torch.Tensor, max_bins: int) -> torch.Tensor:
 def power_spectrum(spec: torch.Tensor) -> torch.Tensor:
     """``|X_k|^2 = re^2 + im^2`` (no normalization, as in the reference)."""
     return spec.real ** 2 + spec.imag ** 2
+
+
+@lru_cache(maxsize=8)
+def twiddle_table(n: int) -> np.ndarray:
+    """``[n, 2]`` float32 (cos, -sin) of ``2 pi m / n``, built in float64
+    and cast: the table kernel B3 (`csrc/band_dft.cu`) indexes by
+    ``(k t) & (n - 1)``."""
+    ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def _dft_basis(n: int, n_bins: int, device: torch.device) -> torch.Tensor:
+    """``[n, 2 n_bins]`` basis, column ``2k + c`` = ``twiddle_table(n)[(k t)
+    mod n, c]``: the same float32 twiddles the kernel reads."""
+    t = np.arange(n, dtype=np.int64)
+    k = np.arange(n_bins, dtype=np.int64)
+    basis = twiddle_table(n)[(t[:, None] * k[None, :]) % n]      # [n, K, 2]
+    return torch.from_numpy(basis.reshape(n, 2 * n_bins)).to(device)
+
+
+def band_dft_plain(windows: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Bins ``[0, n_bins)`` of the DFT of real ``windows [..., n]``
+    (n a power of two), as complex64: one float32 product of the windows
+    with the cos/sin basis (the plain version of kernel B3)."""
+    n = windows.shape[-1]
+    basis = _dft_basis(n, n_bins, windows.device)
+    out = windows.reshape(-1, n) @ basis
+    return torch.view_as_complex(out.reshape(*windows.shape[:-1], n_bins, 2))

@@ -1,5 +1,6 @@
 """Comparison of two float32 runs of the extraction, field by field, with
-limits set from measured readings.
+limits set from measured readings, and of two v7.57 analytics runs
+(`v757_readings`, `v757_mismatches`).
 
 Used by the parity tests (port against the JAX package, on the CPU) and
 by `chip_smoke.py` (card against CPU, and against the golden fixture).
@@ -164,3 +165,84 @@ def wave_reading(got, ref) -> float:
     waves, at `LIMITS["wave"]`; above 1 is outside the limit."""
     share = _wave_share(np.asarray(got, np.float64), np.asarray(ref, np.float64))
     return float(share.max()) if share.size else 0.0
+
+
+# v7.57 outputs. Discrete fields are compared exactly. The others within
+# (atol as a share of the field's largest |ref|, rtol, atol in absolute
+# units): the JAX package's own gates between its Pallas tail and its
+# XLA stack (`tests/test_v757_tail_pallas.py:93-114`) for the tail, and
+# 2e-5 relative for slot and leak periods and powers, whose float32 band
+# DFT error is a share of the frame's strongest bin.
+V757_EXACT = frozenset({"slot_uid", "slot_valid", "leak_active", "states", "sig",
+                        "color", "confluence"})
+V757_LIMITS = {
+    "slot_period": (1e-5, 2e-5, 0.0),
+    "slot_power": (1e-5, 2e-5, 0.0),
+    "leak_period": (1e-5, 2e-5, 0.0),
+    "cycle_values": (2e-4, 0.0, 0.0),
+    "kalman": (1e-4, 0.0, 0.0),
+    "eta_raw": (0.0, 0.0, 5e-3),        # bars
+    "eta_display": (0.0, 0.0, 5e-3),
+    "leak_eta": (0.0, 0.0, 5e-3),
+}
+
+
+def v757_readings(got: dict, ref: dict, rank_flips=None):
+    """Compare two `run_v757_batch` / `run_v757` results (numpy arrays)
+    against `V757_EXACT` and `V757_LIMITS`: returns (problems, excused).
+
+    `rank_flips` (bool ``[..., T]``, optional) marks the frames where the
+    two runs' candidate sets differ: at the top-J boundary two band
+    powers that agree to the runs' float32 rounding ranked the other way,
+    so a different candidate entered the trackers. A slot whose tracker (slot_uid)
+    differs from a frame at or after its symbol's first rank flip is not
+    compared from that frame on, nor its symbol's confluence; `excused`
+    lists (index of that frame and slot, the symbol's first rank flip).
+    """
+    if set(got) != set(ref):
+        return [f"keys {sorted(set(got) ^ set(ref))} differ"], []
+    got = {k: np.asarray(v) for k, v in got.items()}
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    shapes = [f"{k}: {got[k].dtype} {got[k].shape} != {r.dtype} {r.shape}"
+              for k, r in ref.items() if got[k].dtype != r.dtype or got[k].shape != r.shape]
+    if shapes:
+        return shapes, []
+
+    uid_differs = got["slot_uid"] != ref["slot_uid"]            # [..., T, S]
+    skip = np.zeros(uid_differs.shape, bool)
+    skip_symbol = np.zeros(uid_differs.shape[:-1], bool)
+    excused = []
+    if rank_flips is not None and uid_differs.any():
+        rank_flips = np.asarray(rank_flips, bool)
+        first_flip = np.where(rank_flips.any(-1), rank_flips.argmax(-1), rank_flips.shape[-1])
+        first = uid_differs.argmax(axis=-2)                     # [..., S]
+        for track in np.argwhere(uid_differs.any(axis=-2)):
+            lead, s = tuple(int(i) for i in track[:-1]), int(track[-1])
+            t0 = int(first[(*lead, s)])
+            if first_flip[lead] <= t0:
+                excused.append(((*lead, t0, s), int(first_flip[lead])))
+                skip[(*lead, slice(t0, None), s)] = True
+                skip_symbol[(*lead, slice(t0, None))] = True
+    problems = []
+    for key, r in ref.items():
+        g = got[key]
+        if key in V757_EXACT:
+            bad = g != r
+        else:
+            share, rtol, atol = V757_LIMITS[key]
+            scale = max(1.0, float(np.abs(r).max())) if r.size else 1.0
+            bad = ~(np.abs(g - r) <= share * scale + rtol * np.abs(r) + atol)
+        if bad.shape == skip.shape:
+            bad &= ~skip
+        elif key == "confluence":
+            bad &= ~skip_symbol
+        if bad.any():
+            problems.append(f"{key}: {int(bad.sum())} mismatches, first at "
+                            f"{np.argwhere(bad)[:4].tolist()}")
+    return problems, excused
+
+
+def v757_mismatches(got: dict, ref: dict) -> list[str]:
+    """Differences between two v7.57 results beyond `V757_EXACT` and
+    `V757_LIMITS`, every slot compared; an empty list means they agree."""
+    return v757_readings(got, ref)[0]
