@@ -8,6 +8,10 @@ outputs equal (the `EXACT` set of `test_v757_batch.py`, and color and
 confluence); slot and leak periods and powers within 2e-5 relative plus
 1e-5 of their largest value; the tail's floats within the JAX package's
 own gates between its two tails (`tests/test_v757_tail_pallas.py:93-114`).
+In `EtaMode.REALFFT` (the `realfft_all_bins` config, every in-band bin a
+candidate) the ETAs are held at the JAX package's own gate for that mode
+against its float64 oracle, 5e-3 x max(1, max|eta_raw|) bars
+(`tests/test_v757_oracle.py:141-149`; `testing.REALFFT_ETA_SHARE`).
 """
 
 import dataclasses
@@ -34,12 +38,20 @@ CONFIGS = {
     "default": jv.V757Config(window=256, min_period=18.0, max_period=52.0, trend_period=128),
     "hybrid12": jv.V757Config(window=256, min_period=18.0, max_period=52.0, trend_period=128,
                               eta_mode=EtaMode.HYBRID, n_candidates=12),
+    "realfft_all_bins": jv.V757Config(window=256, min_period=18.0, max_period=52.0,
+                                      trend_period=128, eta_mode=EtaMode.REALFFT,
+                                      n_candidates=0),
 }
 N_SYM, N_FRAMES = 4, 61
 
 
-def assert_slice_matches(got: dict, want: dict) -> None:
-    assert v757_mismatches({k: v.cpu().numpy() for k, v in got.items()}, want) == []
+def is_realfft(cfg) -> bool:
+    return cfg.eta_mode.name == "REALFFT"
+
+
+def assert_slice_matches(got: dict, want: dict, cfg) -> None:
+    assert v757_mismatches({k: v.cpu().numpy() for k, v in got.items()}, want,
+                           realfft=is_realfft(cfg)) == []
 
 
 @pytest.fixture(scope="module", params=list(CONFIGS))
@@ -57,11 +69,11 @@ def test_exact_fields_cover_the_jax_exact_set():
 
 
 def test_run_v757_batch_matches_jax(slice_run):
-    _, _, _, got, want = slice_run
+    jcfg, _, _, got, want = slice_run
     assert got["slot_period"].shape == (N_SYM, N_FRAMES, 12)
     assert got["kalman"].shape == (N_SYM, N_FRAMES)
     assert got["slot_valid"].any() and (got["sig"] != 0).any()
-    assert_slice_matches(got, want)
+    assert_slice_matches(got, want, jcfg)
 
 
 def test_run_v757_matches_jax(slice_run):
@@ -69,7 +81,7 @@ def test_run_v757_matches_jax(slice_run):
     want = jv.run_v757(x[1], jcfg, hop=1)
     got = port.run_v757(x[1], pcfg, hop=1, device="cpu")
     assert got["slot_uid"].shape == (N_FRAMES, 12)
-    assert_slice_matches(got, want)
+    assert_slice_matches(got, want, jcfg)
 
 
 def test_hop_and_modes_without_kalman_match_jax():
@@ -81,15 +93,15 @@ def test_hop_and_modes_without_kalman_match_jax():
     got = port.run_v757_batch(x, port.config_from_dict(dataclasses.asdict(jcfg)), hop=3,
                               device="cpu")
     assert "kalman" not in got and got["slot_uid"].shape[1] == 1 + 90 // 3
-    assert_slice_matches(got, want)
+    assert_slice_matches(got, want, jcfg)
 
 
 def test_symbol_chunk_matches_unchunked(slice_run):
-    _, pcfg, x, got, _ = slice_run
+    jcfg, pcfg, x, got, _ = slice_run
     chunked = port.run_v757_batch(torch.from_numpy(x), pcfg, hop=1, symbol_chunk=3)
     # the CPU matmul's summation order depends on the batch size, so the
     # float fields keep the JAX comparison's limits
-    assert_slice_matches(chunked, {k: v.numpy() for k, v in got.items()})
+    assert_slice_matches(chunked, {k: v.numpy() for k, v in got.items()}, jcfg)
 
 
 def test_cpu_path_launches_no_kernel(slice_run):
@@ -140,13 +152,15 @@ def test_import_never_loads_jax():
 
 
 def test_comparator_catches_differences(slice_run):
-    _, _, _, got, want = slice_run
+    jcfg, _, _, got, want = slice_run
+    realfft = is_realfft(jcfg)
+    scaled = ("slot_power", "cycle_values") + (("eta_raw", "eta_display") if realfft else ())
     for key, bump in (("slot_uid", 1), ("eta_raw", 1e-2), ("slot_power", 1e-3),
-                      ("cycle_values", 1e-3), ("color", 1.0)):
+                      ("cycle_values", 1e-3), ("color", 1.0), ("eta_display", 1e-2)):
         bent = {k: v.numpy().copy() for k, v in got.items()}
-        scale = max(1.0, np.abs(want[key]).max())
-        bent[key][0, 5, 0] += bump * (scale if key in ("slot_power", "cycle_values") else 1)
-        problems = v757_mismatches(bent, want)
+        scale = max(1.0, np.abs(want["eta_raw" if realfft and key.startswith("eta") else key]).max())
+        bent[key][0, 5, 0] += bump * (scale if key in scaled else 1)
+        problems = v757_mismatches(bent, want, realfft=realfft)
         assert len(problems) == 1 and problems[0].startswith(key), (key, problems)
 
 
@@ -157,18 +171,19 @@ def test_divergence_after_a_rank_flip_is_excused_and_reported(slice_run):
     mismatch."""
     from wavespec_tpu_torch.testing import v757_readings
 
-    _, _, _, got, want = slice_run
+    jcfg, _, _, got, want = slice_run
+    realfft = is_realfft(jcfg)
     b, s, t0 = 2, 1, 30
     bent = {k: v.numpy().copy() for k, v in got.items()}
     bent["slot_uid"][b, t0:, s] += 1000
     bent["cycle_values"][b, t0 + 3, s] += 1.0
     bent["confluence"][b, t0 + 3] = 99.0
     flips = np.zeros(want["confluence"].shape, bool)
-    assert v757_mismatches(bent, want) != []
+    assert v757_mismatches(bent, want, realfft=realfft) != []
     for at, excused in ((t0 - 2, True), (t0, True), (t0 + 1, False)):
         flips[:] = False
         flips[b, at] = True
-        problems, listed = v757_readings(bent, want, rank_flips=flips)
+        problems, listed = v757_readings(bent, want, rank_flips=flips, realfft=realfft)
         if excused:
             assert problems == [] and listed == [((b, t0, s), at)]
         else:
@@ -176,21 +191,30 @@ def test_divergence_after_a_rank_flip_is_excused_and_reported(slice_run):
                 ["confluence", "cycle_values", "slot_uid"]
     flips[:] = False
     flips[b + 1, t0 - 5] = True
-    problems, listed = v757_readings(bent, want, rank_flips=flips)
+    problems, listed = v757_readings(bent, want, rank_flips=flips, realfft=realfft)
     assert listed == [] and problems
 
 
 if __name__ == "__main__":
-    # Readings: the largest |port - JAX| of each float field, per config
-    # (the default and hybrid12 of CONFIGS, and the REALFFT all-bins mode).
+    # Readings: the largest |port - JAX| of each float field, per config of
+    # CONFIGS, and in REALFFT mode the ETAs' share of their gate.
     #   JAX_PLATFORMS=cpu PYTHONPATH=.:tests python tests/test_torch_v757_slice.py
-    runs = dict(CONFIGS, realfft_all_bins=dataclasses.replace(
-        CONFIGS["default"], eta_mode=EtaMode.REALFFT, n_candidates=0))
-    for name, jcfg in runs.items():
+    from wavespec_tpu_torch.testing import REALFFT_ETA_SHARE
+
+    for name, jcfg in CONFIGS.items():
         x = make_batch(N_SYM, jcfg.window + N_FRAMES - 1, seed=3)
         want = jv.run_v757_batch(x, jcfg, hop=1)
-        got = port.run_v757_batch(x, port.config_from_dict(dataclasses.asdict(jcfg)),
-                                  device="cpu")
-        print(name, {k: float(np.abs(got[k].numpy() - w).max()) for k, w in want.items()
-                     if w.dtype == np.float32},
-              "mismatches:", v757_mismatches({k: v.numpy() for k, v in got.items()}, want))
+        got = {k: v.numpy() for k, v in port.run_v757_batch(
+            x, port.config_from_dict(dataclasses.asdict(jcfg)), device="cpu").items()}
+        diffs = {k: float(np.abs(got[k] - w).max()) for k, w in want.items()
+                 if w.dtype == np.float32}
+        print(name, diffs, "mismatches:",
+              v757_mismatches(got, want, realfft=is_realfft(jcfg)))
+        if is_realfft(jcfg):
+            gate = REALFFT_ETA_SHARE * max(1.0, float(np.abs(want["eta_raw"]).max()))
+            print(f"  REALFFT gate {gate:.4f} bars (max|eta_raw| "
+                  f"{np.abs(want['eta_raw']).max():.2f}); eta_raw uses "
+                  f"{diffs['eta_raw'] / gate:.3f} of it, eta_display "
+                  f"{diffs['eta_display'] / gate:.3f}; values beyond 5e-3 bars: "
+                  f"{int((np.abs(got['eta_raw'] - want['eta_raw']) > 5e-3).sum())} of "
+                  f"{want['eta_raw'].size}")

@@ -11,25 +11,32 @@
 // scalar work: the limit is the length of that dependent chain per
 // matrix and the number of matrices in flight to hide it.
 //
-// Design: one thread per matrix, so every rotation of a round is plain
-// per-thread scalar code and the batch supplies the parallelism, as the
-// TPU kernel put the batch on the vector lanes. A block holds T matrices
-// and their eigenvector accumulators in shared memory in a
-// struct-of-arrays layout, element (i, j) of matrix t at (i*m + j)*T + t,
-// so the threads of a warp touch 32 consecutive words (no bank
-// conflicts). Loads and stores go through shared memory cooperatively so
-// that global memory is read and written in contiguous runs. The
-// round-robin pairs come in a small table, in the order of
-// analyze/jacobi.py::_round_robin_pairs. The rotation is the half angle
-// t = 0.5*atan2(y, x), with the exact y == 0 case forced to the
-// identity: real symmetric Toeplitz covariances reach exact zeros
-// mid-sweep, and c = s = 0 would wipe out both rows. The larger of
-// cos t, sin t comes from its half-angle formula and the smaller from
-// sin 2t = 2 sin t cos t; taking both from half-angle formulas, as the
-// TPU kernel does, cancels for small angles and stalls the off-diagonal
-// near sqrt(eps) of the scale. Eigenpairs are returned unsorted (the
-// diagonal and V); the caller sorts them. Compiled with --fmad=false, so
-// that every rotation rounds as the plain PyTorch version's does.
+// Design: a warp per matrix, so the chain of a round is split over the
+// lanes. For m <= 16 a warp packs G = floor(32 / m) matrices (3 at
+// m = 10); for m > 16 it holds one. A and V of each matrix live row-major
+// in the warp's slice of shared memory, each matrix's slot S >= m*m
+// floats with S = m (mod 32), so that the G matrices' rows fall on
+// different banks. A round (the round-robin pairs of
+// analyze/jacobi.py::_round_robin_pairs, from a small table) takes three
+// phases with __syncwarp() between them:
+// 1. rotations: lane (g, k) < G*half computes pair k's (c, s) of
+//    matrix g from the round-start matrix, into shared memory;
+// 2. rows, R^T A: lane (g, j) < G*m updates column j's p and q entries
+//    of every pair (consecutive lanes, consecutive addresses);
+// 3. columns, A R and V R: lane (g, i) updates row i's p and q entries.
+// Lanes past G*m idle. The chain per lane is about m/2 rotations of two
+// elements a phase instead of a thread's ~m^2 updates a round.
+// The rotation is the half angle t = 0.5*atan2(y, x), with the exact
+// y == 0 case forced to the identity: real symmetric Toeplitz
+// covariances reach exact zeros mid-sweep, and c = s = 0 would wipe out
+// both rows. The larger of cos t, sin t comes from its half-angle formula
+// and the smaller from sin 2t = 2 sin t cos t; taking both from
+// half-angle formulas, as the TPU kernel does, cancels for small angles
+// and stalls the off-diagonal near sqrt(eps) of the scale. Every element
+// update and rotation keeps the formulas of the plain PyTorch version
+// (analyze/jacobi.py::jacobi_eigh_plain); only who computes them
+// changes, so with --fmad=false the kernel equals it bitwise. Eigenpairs
+// are returned unsorted (the diagonal and V); the caller sorts them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,6 +45,24 @@ namespace {
 
 constexpr int kMaxM = 32;
 constexpr int kMaxHalf = kMaxM / 2;
+constexpr int kMaxWarps = 8;
+constexpr int kSmemDefault = 48 * 1024;
+
+struct Layout {
+  int m, mm, g, slot, half;   // g: matrices a warp holds; slot: floats per matrix
+  int warp_floats;            // A, V and (c, s) of one warp
+};
+
+__host__ __device__ inline Layout layout(int m, int half) {
+  Layout l;
+  l.m = m;
+  l.mm = m * m;
+  l.g = m <= 16 ? 32 / m : 1;
+  l.slot = l.mm + ((m - l.mm) % 32 + 32) % 32;
+  l.half = half;
+  l.warp_floats = 2 * l.g * l.slot + 2 * l.g * half;
+  return l;
+}
 
 __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
                                    float* __restrict__ vals,
@@ -46,100 +71,117 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
                                    int n_rounds, int half, int batch, int m,
                                    int sweeps) {
   extern __shared__ float smem[];
-  const int T = blockDim.x;
-  const int t = threadIdx.x;
-  const int mm = m * m;
-  float* A = smem;
-  float* V = smem + mm * T;
-  const long long first = static_cast<long long>(blockIdx.x) * T;
+  const Layout L = layout(m, half);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int* pq = reinterpret_cast<int*>(smem);
+  const int n_pairs = n_rounds * half;
+  for (int e = threadIdx.x; e < 2 * n_pairs; e += blockDim.x) pq[e] = pairs[e];
+  float* A = smem + 2 * n_pairs + warp * L.warp_floats;
+  float* V = A + L.g * L.slot;
+  float* cs = V + L.g * L.slot;   // [g][half] (c, s)
+  const long long first = (static_cast<long long>(blockIdx.x) * warps + warp) * L.g;
 
-  // Cooperative load: the block's T matrices are one contiguous run of
-  // T*m*m floats in global memory. Matrices past the batch end become
-  // the identity (their rotations are trivial and never stored).
-  for (int e = t; e < T * mm; e += T) {
-    const int mat = e / mm;
-    const int el = e - mat * mm;
-    const long long b = first + mat;
+  // The warp's G matrices are one contiguous run of G*m*m floats in
+  // global memory. Matrices past the batch end become the identity
+  // (their rotations are trivial and never stored).
+  for (int e = lane; e < L.g * L.mm; e += 32) {
+    const int g = e / L.mm;
+    const int el = e - g * L.mm;
+    const long long b = first + g;
     const int i = el / m;
     const int j = el - i * m;
     float x = (i == j) ? 1.0f : 0.0f;
-    if (b < batch) x = a[b * mm + el];
-    A[el * T + mat] = x;
-    V[el * T + mat] = (i == j) ? 1.0f : 0.0f;
+    if (b < batch) x = a[b * L.mm + el];
+    A[g * L.slot + el] = x;
+    V[g * L.slot + el] = (i == j) ? 1.0f : 0.0f;
   }
   __syncthreads();
 
-  float cs[kMaxHalf];
-  float sn[kMaxHalf];
+  // lane roles: (rg, k) for the rotations, (eg, e) for rows and columns
+  const int rg = lane / half, k_rot = lane - rg * half;
+  const bool rot_lane = rg < L.g;
+  const int eg = lane / m, e_idx = lane - eg * m;
+  const bool el_lane = eg < L.g;
+  float* Ar = A + (rot_lane ? rg : 0) * L.slot;
+  float* Ae = A + (el_lane ? eg : 0) * L.slot;
+  float* Ve = V + (el_lane ? eg : 0) * L.slot;
+  float2* cs_r = reinterpret_cast<float2*>(cs) + (rot_lane ? rg : 0) * half;
+  const float2* cs_e = reinterpret_cast<const float2*>(cs) + (el_lane ? eg : 0) * half;
+
   for (int sw = 0; sw < sweeps; ++sw) {
     for (int r = 0; r < n_rounds; ++r) {
-      const int* rp = pairs + 2 * r * half;
-      // Rotation angles of every pair from the matrix at round start.
-      for (int k = 0; k < half; ++k) {
-        const int p = rp[2 * k];
-        const int q = rp[2 * k + 1];
-        if (p < 0) continue;
-        const float y = 2.0f * A[(p * m + q) * T + t];
-        const float x = A[(q * m + q) * T + t] - A[(p * m + p) * T + t];
-        const float rr = sqrtf(x * x + y * y);
+      const int* rp = pq + 2 * r * half;
+      // 1. Rotation of pair k_rot from the matrix at round start.
+      if (rot_lane) {
+        const int p = rp[2 * k_rot];
+        const int q = rp[2 * k_rot + 1];
         float c = 1.0f, s = 0.0f;
-        if (rr > 1e-30f && y != 0.0f) {
-          const float xr = x / rr;
-          const float yr = y / rr;
-          if (xr >= 0.0f) {
-            c = sqrtf(0.5f * (1.0f + xr));
-            s = 0.5f * yr / c;
-          } else {
-            s = copysignf(sqrtf(fmaxf(0.5f * (1.0f - xr), 0.0f)), yr);
-            c = 0.5f * yr / s;
+        if (p >= 0) {
+          const float y = 2.0f * Ar[p * m + q];
+          const float x = Ar[q * m + q] - Ar[p * m + p];
+          const float rr = sqrtf(x * x + y * y);
+          if (rr > 1e-30f && y != 0.0f) {
+            const float xr = x / rr;
+            const float yr = y / rr;
+            if (xr >= 0.0f) {
+              c = sqrtf(0.5f * (1.0f + xr));
+              s = 0.5f * yr / c;
+            } else {
+              s = copysignf(sqrtf(fmaxf(0.5f * (1.0f - xr), 0.0f)), yr);
+              c = 0.5f * yr / s;
+            }
           }
         }
-        cs[k] = c;
-        sn[k] = s;
+        cs_r[k_rot] = make_float2(c, s);
       }
-      // Rows: R^T A.
-      for (int k = 0; k < half; ++k) {
-        const int p = rp[2 * k];
-        const int q = rp[2 * k + 1];
-        if (p < 0) continue;
-        const float c = cs[k], s = sn[k];
-        for (int j = 0; j < m; ++j) {
-          const float xp = A[(p * m + j) * T + t];
-          const float xq = A[(q * m + j) * T + t];
-          A[(p * m + j) * T + t] = c * xp - s * xq;
-          A[(q * m + j) * T + t] = s * xp + c * xq;
+      __syncwarp();
+      // 2. Rows: R^T A, lane = column j.
+      if (el_lane) {
+        const int j = e_idx;
+        for (int k = 0; k < half; ++k) {
+          const int p = rp[2 * k];
+          const int q = rp[2 * k + 1];
+          if (p < 0) continue;
+          const float2 w = cs_e[k];
+          const float xp = Ae[p * m + j];
+          const float xq = Ae[q * m + j];
+          Ae[p * m + j] = w.x * xp - w.y * xq;
+          Ae[q * m + j] = w.y * xp + w.x * xq;
         }
       }
-      // Columns: (R^T A) R, and the eigenvector accumulator V R.
-      for (int k = 0; k < half; ++k) {
-        const int p = rp[2 * k];
-        const int q = rp[2 * k + 1];
-        if (p < 0) continue;
-        const float c = cs[k], s = sn[k];
-        for (int i = 0; i < m; ++i) {
-          const float xp = A[(i * m + p) * T + t];
-          const float xq = A[(i * m + q) * T + t];
-          A[(i * m + p) * T + t] = c * xp - s * xq;
-          A[(i * m + q) * T + t] = s * xp + c * xq;
-          const float vp = V[(i * m + p) * T + t];
-          const float vq = V[(i * m + q) * T + t];
-          V[(i * m + p) * T + t] = c * vp - s * vq;
-          V[(i * m + q) * T + t] = s * vp + c * vq;
+      __syncwarp();
+      // 3. Columns: (R^T A) R and V R, lane = row i.
+      if (el_lane) {
+        const int i = e_idx;
+        for (int k = 0; k < half; ++k) {
+          const int p = rp[2 * k];
+          const int q = rp[2 * k + 1];
+          if (p < 0) continue;
+          const float2 w = cs_e[k];
+          const float xp = Ae[i * m + p];
+          const float xq = Ae[i * m + q];
+          Ae[i * m + p] = w.x * xp - w.y * xq;
+          Ae[i * m + q] = w.y * xp + w.x * xq;
+          const float vp = Ve[i * m + p];
+          const float vq = Ve[i * m + q];
+          Ve[i * m + p] = w.x * vp - w.y * vq;
+          Ve[i * m + q] = w.y * vp + w.x * vq;
         }
       }
+      __syncwarp();
     }
   }
 
-  const long long b = first + t;
-  if (b < batch) {
-    for (int i = 0; i < m; ++i) vals[b * m + i] = A[(i * m + i) * T + t];
+  if (el_lane) {
+    const long long b = first + eg;
+    if (b < batch) vals[b * m + e_idx] = Ae[e_idx * m + e_idx];
   }
-  __syncthreads();
-  for (int e = t; e < T * mm; e += T) {
-    const int mat = e / mm;
-    const int el = e - mat * mm;
-    const long long bb = first + mat;
-    if (bb < batch) vecs[bb * mm + el] = V[el * T + mat];
+  for (int e = lane; e < L.g * L.mm; e += 32) {
+    const int g = e / L.mm;
+    const int el = e - g * L.mm;
+    const long long b = first + g;
+    if (b < batch) vecs[b * L.mm + el] = V[g * L.slot + el];
   }
 }
 
@@ -147,15 +189,21 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
 
 extern "C" int jacobi_eigh_launch(const void* a, void* vals, void* vecs,
                                   const void* pairs, int n_rounds, int half,
-                                  int batch, int m, int sweeps,
-                                  int per_block, void* stream) {
-  if (m < 1 || m > kMaxM || half > kMaxHalf || per_block < 1) {
+                                  int batch, int m, int sweeps, void* stream) {
+  if (m < 1 || m > kMaxM || half < 1 || half > kMaxHalf || n_rounds < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  const int blocks = (batch + per_block - 1) / per_block;
-  const size_t smem = 2 * sizeof(float) * m * m * per_block;
-  jacobi_eigh_kernel<<<blocks, per_block, smem,
+  const Layout L = layout(m, half);
+  const size_t table = sizeof(int) * 2 * n_rounds * half;
+  const size_t per_warp = sizeof(float) * L.warp_floats;
+  int warps = static_cast<int>((kSmemDefault - table) / per_warp);
+  warps = warps < kMaxWarps ? warps : kMaxWarps;
+  const long long groups = (static_cast<long long>(batch) + L.g - 1) / L.g;
+  if (groups < warps) warps = static_cast<int>(groups);
+  const long long blocks = (groups + warps - 1) / warps;
+  const size_t smem = table + per_warp * warps;
+  jacobi_eigh_kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<float*>(vals),
       static_cast<float*>(vecs), static_cast<const int*>(pairs), n_rounds,

@@ -3,8 +3,9 @@ replaces `wavespec_tpu/kernels/jacobi_pallas.py::jacobi_eigh_pallas`.
 
 `jacobi_eigh_unsorted` takes a tensor ``[B, m, m]`` float32, contiguous,
 m <= 32, and returns the unsorted eigenpairs; `analyze.jacobi.jacobi_eigh`
-sorts them. A CPU tensor goes to the plain version; there is no fallback
-on the CUDA path.
+sorts them. The kernel gives each matrix a warp (floor(32 / m) matrices a
+warp for m <= 16) and equals the plain version bitwise. A CPU tensor goes
+to the plain version; there is no fallback on the CUDA path.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from wavespec_tpu_torch.analyze.jacobi import _round_robin_pairs, jacobi_eigh_pl
 from wavespec_tpu_torch.kernels._build import check, load_library
 
 MAX_M = 32
-SMEM_BYTES = 48 * 1024
 
 
 def _lib() -> ctypes.CDLL:
@@ -29,7 +29,7 @@ def _lib() -> ctypes.CDLL:
     # computes what `jacobi_eigh_plain` computes.
     lib = load_library("jacobi_eigh", ("--fmad=false",))
     fn = lib.jacobi_eigh_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -45,13 +45,6 @@ def pairs_table(m: int, device: torch.device) -> tuple[torch.Tensor, int, int]:
         for k, (p, q) in enumerate(pairs):
             tbl[r, k, 0], tbl[r, k, 1] = p, q
     return tbl.to(device), len(rounds), half
-
-
-def matrices_per_block(m: int) -> int:
-    """Matrices (threads) per block: A and V of every matrix fit in 48 KB
-    of shared memory, rounded down to whole warps when that leaves one."""
-    fit = min(64, SMEM_BYTES // (8 * m * m))
-    return fit - fit % 32 if fit >= 32 else fit
 
 
 def jacobi_eigh_unsorted(a: torch.Tensor, sweeps: int = 6):
@@ -74,7 +67,7 @@ def jacobi_eigh_unsorted(a: torch.Tensor, sweeps: int = 6):
         stream = torch.cuda.current_stream().cuda_stream
         status = _lib().jacobi_eigh_launch(
             a.data_ptr(), vals.data_ptr(), vecs.data_ptr(), tbl.data_ptr(),
-            n_rounds, half, batch, m, sweeps, matrices_per_block(m), stream,
+            n_rounds, half, batch, m, sweeps, stream,
         )
     check(status, "jacobi_eigh_launch")
     jacobi_eigh_unsorted.launches += 1

@@ -4,8 +4,9 @@
 The JAX package evaluates the rFFT as a four-step MXU matmul because its
 TPU runtime has no FFT lowering; here `torch.fft.rfft` (cuFFT on the card,
 pocketfft on the CPU) computes the full transform and the band is sliced.
-The v7.57 path instead takes the direct band DFT (`band_dft_plain`, the
-plain version of kernel B3, counterpart of `kernels/fused_dft.py`).
+The v7.57 path instead takes the band DFT of kernel B3 (counterpart of
+`kernels/fused_dft.py`), whose plain version is the direct sum
+`band_dft_plain`.
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ def power_spectrum(spec: torch.Tensor) -> torch.Tensor:
 @lru_cache(maxsize=8)
 def twiddle_table(n: int) -> np.ndarray:
     """``[n, 2]`` float32 (cos, -sin) of ``2 pi m / n``, built in float64
-    and cast: the table kernel B3 (`csrc/band_dft.cu`) indexes by
-    ``(k t) & (n - 1)``."""
+    and cast: every twiddle of kernel B3 (`csrc/band_dft.cu`) is an entry
+    of it, indexed ``(a b) & (n - 1)`` for W_n^(a b)."""
     ang = 2.0 * np.pi * np.arange(n, dtype=np.float64) / n
     return np.stack([np.cos(ang), -np.sin(ang)], axis=-1).astype(np.float32)
 
