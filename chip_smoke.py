@@ -13,7 +13,10 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes its main path gives it, and times kernel, plain version, the
    one PyTorch call that computes the same function where there is one,
-   and the least time the card could take (its bound):
+   and the least time the card could take (its bound); CUDA events,
+   median of 5 runs, each of 5 back-to-back calls for B3-B5 and B3's
+   library call, so that the host's preparation of a call overlaps the
+   card's work:
    - B1 Jacobi eigh (a warp per matrix) on 1536 and 60,000 10x10
      covariances, and on random symmetric matrices at m = 4 and m = 17,
      and B2 candidate selection on 512 and 20,000 windows (MUSIC shapes
@@ -28,6 +31,14 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
      and the final state) and B5 tail (all three ETA modes; floats
      bitwise or to 1e-6 relative, color, states, sig and confluence
      exact), and B4 and B5 resumed from a split against one shot;
+   - B4 also on tie-heavy and jittered candidate streams at (J, C, S) =
+     (7, 16, 1), (24, 64, 12), (41, 16, 32), (149, 64, 32), and B5 at 1
+     and 32 slots, with one signal at a time, without the Kalman filter,
+     in HYBRID mode at 32 slots and over 37 frames, each one shot and
+     resumed at a frame that is no multiple of the kernels' chunks
+     (`testing.tracker_stream`, `testing.tail_stream`);
+   - B4 and B5 timed again on shape (c)'s inputs tiled 8 times (1024
+     symbols, the online fleet's size);
 3. runs the port on the golden fixture `tests/fixtures/golden_extract.npz`
    and holds it to the recorded output;
 4. drives the two main paths, each with every launch count set to 0
@@ -138,6 +149,90 @@ def bisymmetric_matrices() -> torch.Tensor:
     return torch.tensor(np.stack(mats), dtype=torch.float32)
 
 
+def check_tracker_tail_edges(vcfg, dev) -> None:
+    """B4 and B5 against their plain versions away from shape (c): tie
+    rules, candidate, capacity and slot counts, the options of the tail,
+    and resume splits inside the kernels' chunks (16 symbols each)."""
+    import dataclasses
+
+    from wavespec_tpu_torch.analyze.eta import EtaMode
+    from wavespec_tpu_torch.analyze.trackers import (TrackerConfig, TrackerState,
+                                                     track_frames_plain)
+    from wavespec_tpu_torch.kernels import tracker as kt
+    from wavespec_tpu_torch.kernels import v757_tail as kv
+    from wavespec_tpu_torch.pipeline.tail import V757TailState, v757_tail_plain
+    from wavespec_tpu_torch.signals.followfirst import FollowFirstConfig
+    from wavespec_tpu_torch.testing import tail_stream, tracker_stream
+
+    cut = 37
+    for ties in (True, False):
+        for j, c, s in ((7, 16, 1), (24, 64, 12), (41, 16, 32), (149, 64, 32)):
+            cand = [torch.from_numpy(a).to(dev)
+                    for a in tracker_stream(150, j, SEED + j + c + s, (16,), ties=ties)]
+            tcfg = TrackerConfig(capacity=c, n_slots=s)
+            out, state = kt.track_frames_kernel(*cand, tcfg)
+            out_p, state_p = track_frames_plain(*cand, tcfg)
+            head = kt.track_frames_kernel(*(a[:, :cut].contiguous() for a in cand), tcfg)
+            tail = kt.track_frames_kernel(*(a[:, cut:].contiguous() for a in cand), tcfg,
+                                          init=head[1])
+            torch.cuda.synchronize()
+            bad = [k for k in out_p if not (torch.equal(out[k], out_p[k]) and torch.equal(
+                torch.cat([head[0][k], tail[0][k]], 1), out[k]))]
+            bad += [f for f in TrackerState._fields
+                    if not (torch.equal(getattr(state, f), getattr(state_p, f))
+                            and torch.equal(getattr(tail[1], f), getattr(state, f)))]
+            if bad:
+                raise AssertionError(f"B4 tracker ties={ties} J={j} C={c} S={s}: {bad} differ")
+            log(f"B4 tracker {'tie-heavy' if ties else 'jittered'} stream, 16 symbols x 150 "
+                f"frames, J={j} C={c} S={s}: bitwise equal to plain on the 11 outputs and the "
+                f"final state, resumed at frame {cut} equal to one shot "
+                f"({int(out_p['leak_active'].sum())} leak flags, "
+                f"{int(out_p['slot_valid'].sum())} valid slots)")
+
+    one_signal = FollowFirstConfig(allow_multiple_signals=False, entry_bars_before_end=2)
+    for label, s, t, cfg in (
+            ("1 slot", 1, 100, vcfg), ("32 slots", 32, 100, vcfg),
+            ("one signal at a time", 12, 100, dataclasses.replace(vcfg, followfirst=one_signal)),
+            ("no Kalman", 12, 100, dataclasses.replace(vcfg, enable_kalman=False)),
+            ("HYBRID, 32 slots", 32, 100, dataclasses.replace(vcfg, eta_mode=EtaMode.HYBRID)),
+            ("37 frames", 12, 37, vcfg)):
+        args = [torch.from_numpy(a).to(dev) for a in tail_stream(t, s, SEED + s + t, (16,))]
+        got, got_state = kv.v757_tail(*args, cfg, 1, return_state=True)
+        ref, ref_state = v757_tail_plain(*args, cfg, 1, return_state=True)
+        split = 13 if t == 37 else 45
+        part = [a[:, :split].contiguous() if a.shape[1] == t else a for a in args]
+        rest = [a[:, split:].contiguous() if a.shape[1] == t else a for a in args]
+        h_out, h_state = kv.v757_tail(*part, cfg, 1, return_state=True)
+        r_out, r_state = kv.v757_tail(*rest, cfg, 1, init=h_state, return_state=True)
+        torch.cuda.synchronize()
+        worst = max(tail_diff(got, ref, label),
+                    tail_diff(got_state._asdict(), ref_state._asdict(), f"{label} state"))
+        bad = [k for k in got if not torch.equal(torch.cat([h_out[k], r_out[k]], 1), got[k])]
+        bad += [f for f in V757TailState._fields
+                if not torch.equal(getattr(r_state, f), getattr(got_state, f))]
+        if bad:
+            raise AssertionError(f"B5 v757_tail {label}: resumed {bad} differ from one shot")
+        log(f"B5 v757_tail {label}, 16 symbols x {t} frames: within 1e-6 relative of plain "
+            f"(largest |diff| {worst:.3e}), color, states, sig, confluence exact; resumed at "
+            f"frame {split} equal to one shot ({int((ref['sig'] != 0).sum())} signals)")
+
+
+def tail_diff(got, ref, what) -> float:
+    """B5 against its plain version: color, states, sig, confluence and the
+    integer state exact, floats within 1e-6 relative; the largest |diff|."""
+    worst = 0.0
+    for k in ref:
+        if k in ("color", "states", "sig", "confluence") or ref[k].dtype == torch.int32:
+            if not torch.equal(got[k], ref[k]):
+                raise AssertionError(f"B5 v757_tail {what}: {k} differs")
+            continue
+        d = (got[k] - ref[k]).abs()
+        if not (d <= 1e-6 * ref[k].abs()).all():
+            raise AssertionError(f"B5 v757_tail {what}: {k} beyond 1e-6 relative")
+        worst = max(worst, d.max().item())
+    return worst
+
+
 def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     """B3, B4 and B5 against their plain versions at shape (c), on the
     inputs the v7.57 main path gives them; returns each kernel's record
@@ -204,11 +299,13 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     # usual count) gives every bin, so the band needs no more operations
     # than that, and the bytes set the bound
     ops = 2.5 * WINDOW * np.log2(WINDOW) * b * t_frames
+    # B3 to B5 and the library call are timed over 5 back-to-back calls,
+    # so that the host's preparation of a call overlaps the card's work
     rec["band_dft"] = dict(
         max_abs_err=(spec - ref).abs().max().item(),
-        ms=cuda_ms(lambda: kb.band_dft(windows, n_bins)),
+        ms=cuda_ms(lambda: kb.band_dft(windows, n_bins), per_run=5),
         plain_ms=cuda_ms(lambda: band_dft_plain(windows, n_bins)),
-        library_ms=cuda_ms(lambda: torch.fft.rfft(windows)[..., :n_bins]),
+        library_ms=cuda_ms(lambda: torch.fft.rfft(windows)[..., :n_bins], per_run=5),
         bound=bound(nbytes(windows, torch.view_as_real(spec)), ops))
     del windows, ref, spec, cands_ref
 
@@ -235,7 +332,7 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     ops = b * t_frames * (10 * j * c + 15 * s * c)   # matching, slot fill, leak scan
     rec["tracker"] = dict(
         max_abs_err=max((out[k].float() - out_p[k].float()).abs().max().item() for k in out),
-        ms=cuda_ms(lambda: kt.track_frames_kernel(*cand, tcfg)),
+        ms=cuda_ms(lambda: kt.track_frames_kernel(*cand, tcfg), per_run=5),
         plain_ms=cuda_ms(lambda: track_frames_plain(*cand, tcfg), runs=3, warmup=1),
         library_ms=None,
         bound=bound(nbytes(*cand, *out.values(), *state), ops))
@@ -244,19 +341,6 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     newest, price_prev = pv._frame_prices(xc, vcfg, 1, t_frames)
     gd_slot = pv._pick_band(cands[4], out["slot_fft_index"], pv._gd_lo(vcfg)).contiguous()
     args = (newest, price_prev, out["slot_period"], out["slot_valid"], gd_slot)
-
-    def tail_diff(got, ref, what):
-        worst = 0.0
-        for k in ref:
-            if k in ("color", "states", "sig", "confluence") or ref[k].dtype == torch.int32:
-                if not torch.equal(got[k], ref[k]):
-                    raise AssertionError(f"B5 v757_tail {what}: {k} differs")
-                continue
-            d = (got[k] - ref[k]).abs()
-            if not (d <= 1e-6 * ref[k].abs()).all():
-                raise AssertionError(f"B5 v757_tail {what}: {k} beyond 1e-6 relative")
-            worst = max(worst, d.max().item())
-        return worst
 
     max_err = 0.0
     for mode in EtaMode:
@@ -283,7 +367,7 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     s_ops = 200 * s + 150          # per frame: biquad, ETA, FollowFirst per slot; Kalman
     rec["v757_tail"] = dict(
         max_abs_err=max_err,
-        ms=cuda_ms(lambda: kv.v757_tail(*args, vcfg, 1)),
+        ms=cuda_ms(lambda: kv.v757_tail(*args, vcfg, 1), per_run=5),
         plain_ms=cuda_ms(lambda: v757_tail_plain(*args, vcfg, 1), runs=3, warmup=1),
         library_ms=None,
         bound=bound(nbytes(*args, *one.values()), b * t_frames * s_ops))
@@ -291,6 +375,20 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"{name} shape (c): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library {lib}, bound {r['bound'][0]:.4f} ms ({r['bound'][1]}) {tag}")
+    for name in ("tracker", "v757_tail"):
+        log(f"{name} shape (c): {1e3 * rec[name]['ms'] / t_frames:.3f} us per frame "
+            f"({t_frames} dependent frames a symbol) {tag}")
+
+    # ---- B4 and B5 at the online fleet's 1024 symbols: (c) tiled 8 times ----
+    cand8 = [c.repeat(8, 1, 1) for c in cand]
+    args8 = [a.repeat(8, *([1] * (a.dim() - 1))) for a in args]
+    ms4 = cuda_ms(lambda: kt.track_frames_kernel(*cand8, tcfg), per_run=5)
+    ms5 = cuda_ms(lambda: kv.v757_tail(*args8, vcfg, 1), per_run=5)
+    log(f"B = {8 * b} symbols x {t_frames} frames (shape (c) tiled 8 times): tracker "
+        f"{ms4:.4f} ms ({1e3 * ms4 / t_frames:.3f} us per frame), v757_tail {ms5:.4f} ms "
+        f"({1e3 * ms5 / t_frames:.3f} us per frame), median of 5 runs of 5 calls {tag}")
+    del cand8, args8
+    check_tracker_tail_edges(vcfg, dev)
     return rec
 
 

@@ -3,7 +3,8 @@ version of kernel B4) against the JAX package's `track_frames` (the XLA
 scan) and its Pallas kernel in interpret mode, on the same numpy
 candidate streams: all 11 per-frame outputs and the final state equal,
 at J = 24 and at an all-bins J above one Pallas slab, for a symbol batch,
-and across a resume split.
+on tie-heavy streams (the stream `chip_smoke.py` holds kernel B4 to its
+plain version on) at 1, 12 and 32 slots, and across a resume split.
 """
 
 import dataclasses
@@ -17,21 +18,9 @@ from wavespec_tpu.analyze import trackers as jtr
 from wavespec_tpu.kernels.tracker_pallas import track_frames_pallas
 from wavespec_tpu_torch.analyze import trackers as ptr
 from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
-
-
-def candidate_stream(t, j, seed, batch=()):
-    """Candidates with near-tolerance neighbours, dropouts, power
-    inversions and short leak periods (as tests/test_trackers.py)."""
-    rng = np.random.default_rng(seed)
-    shape = (*batch, t, j)
-    base = rng.choice([20.0, 21.0, 35.0, 36.5, 60.0, 9.0], size=shape)
-    periods = (base * (1 + 0.02 * rng.standard_normal(shape))).astype(np.float32)
-    powers = rng.gamma(2.0, 2.0, size=shape).astype(np.float32)
-    valid = rng.random(shape) > 0.25
-    fft = (4096 / np.maximum(periods, 1.0)).astype(np.int32)
-    periods = np.where(valid, periods, 0.0).astype(np.float32)
-    powers = np.where(valid, powers, 0.0).astype(np.float32)
-    return periods, powers, fft, valid
+# near-tolerance neighbours, dropouts, power inversions and short leak
+# periods (as tests/test_trackers.py); `ties=True` for the tie-heavy stream
+from wavespec_tpu_torch.testing import tracker_stream as candidate_stream
 
 
 def jax_state_np(st):
@@ -49,18 +38,21 @@ def assert_same(got_out, got_state, want_out, want_state):
 
 
 CASES = {
-    # (t, j, seed, batch, capacity)
-    "j24": (40, 24, 3, (), 64),
-    "all_bins": (24, 41, 5, (), 16),
-    "batch": (30, 7, 7, (3,), 16),
+    # (t, j, seed, batch, capacity, slots, ties)
+    "j24": (40, 24, 3, (), 64, 12, False),
+    "all_bins": (24, 41, 5, (), 16, 12, False),
+    "batch": (30, 7, 7, (3,), 16, 12, False),
+    "ties": (40, 24, 8, (2,), 64, 12, True),
+    "ties_32_slots": (32, 41, 9, (), 16, 32, True),
+    "ties_1_slot": (32, 7, 10, (), 16, 1, True),
 }
 
 
 @pytest.fixture(scope="module", params=list(CASES))
 def stream(request):
-    t, j, seed, batch, cap = CASES[request.param]
-    frames = candidate_stream(t, j, seed, batch)
-    jcfg = jtr.TrackerConfig(capacity=cap, leak_min_bars=2)
+    t, j, seed, batch, cap, slots, ties = CASES[request.param]
+    frames = candidate_stream(t, j, seed, batch, ties=ties)
+    jcfg = jtr.TrackerConfig(capacity=cap, n_slots=slots, leak_min_bars=2)
     want_xla = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
     want_pallas = track_frames_pallas(*map(jnp.asarray, frames), jcfg, interpret=True)
     pcfg = ptr.TrackerConfig(**dataclasses.asdict(jcfg))

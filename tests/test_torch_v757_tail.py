@@ -43,6 +43,14 @@ CASES = {
     "batch_no_kalman": (V757Config(window=256, min_period=18.0, max_period=52.0,
                                    enable_kalman=False), 4,
                         dict(t=96, seed=3, batch=(3,))),
+    # the slot counts kernel B5 takes at its edges (FollowFirst's state in
+    # the XLA stack is sized by its n_slots)
+    "one_slot": (V757Config(window=256, min_period=18.0, max_period=52.0,
+                            followfirst=FollowFirstConfig(n_slots=1)), 4,
+                 dict(t=48, s=1, seed=6, batch=(2,))),
+    "slots_32": (V757Config(window=256, min_period=18.0, max_period=52.0,
+                            followfirst=FollowFirstConfig(n_slots=32)), 4,
+                 dict(t=48, s=32, seed=7)),
 }
 
 
@@ -75,14 +83,17 @@ def test_tail_matches_pallas_kernel(tail_case):
     assert set(got) == set(want)
     for k in want:
         g = got[k].numpy()
-        scale = max(1.0, np.abs(want[k]).max())
+        # at one slot the Pallas kernel returns the slot fields without
+        # their slot axis
+        w = want[k].reshape(g.shape)
+        scale = max(1.0, np.abs(w).max())
         if k in DISCRETE:
-            np.testing.assert_array_equal(g, want[k], err_msg=k)
+            np.testing.assert_array_equal(g, w, err_msg=k)
         elif k in ("eta_raw", "eta_display"):
-            assert (np.abs(g - want[k]) <= 1e-5 * scale).mean() >= 0.995, k
-            np.testing.assert_allclose(g, want[k], rtol=0, atol=5e-3, err_msg=k)
+            assert (np.abs(g - w) <= 1e-5 * scale).mean() >= 0.995, k
+            np.testing.assert_allclose(g, w, rtol=0, atol=5e-3, err_msg=k)
         else:
-            np.testing.assert_allclose(g, want[k], rtol=1e-5, atol=1e-5 * scale, err_msg=k)
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5 * scale, err_msg=k)
 
 
 def test_tail_matches_xla_stack(tail_case):

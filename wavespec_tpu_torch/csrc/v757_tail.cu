@@ -12,16 +12,33 @@
 // What bounds it: per symbol and frame it reads 1 + 3 * S words and
 // writes 6 * S + 2, about 330 bytes at S = 12, and does some hundreds of
 // flops per slot. The frames of a symbol are a dependent chain (each
-// machine's state feeds the next frame), so the time is the latency of
-// T frame steps, not bandwidth or arithmetic.
+// machine's state feeds the next frame), so the time is T times the
+// latency of what each frame must do after the frame before. With the
+// frame's loads, the biquad coefficients (sinf, cosf, two expf, five
+// divisions), the angle and the Kalman step all on that chain a frame
+// took ~2.1 us on the H100; most of it needs no machine state, so it is
+// taken off the chain (~1 us a frame).
 //
-// Design: one warp per symbol (one block of 32 threads), the frame loop
-// inside the kernel. Lane s < S runs slot s's biquad and ETA machine
-// with its state in registers; the quarter-period lag ring lives in
-// shared memory, [cap][S]. FollowFirst's per-symbol position, the first
-// firing slot and the confluence counts are warp ballots and shuffles.
-// Every lane runs the per-symbol Kalman step (uniform, no divergence);
-// lane 0 stores it. Lanes >= S behave as inactive slots.
+// Design: one block of two warps per symbol, frames in chunks of F whose
+// inputs (newest, period, valid, gd) arrive by cp.async into a two-stage
+// ring while the chunk before runs. Each chunk is six passes that
+// alternate parallel work over its (frame, slot) pairs with short walks
+// over its frames (lane s < S walks slot s), each term by the same
+// expression as before, so with the same bits:
+// 1. both warps: the biquad coefficients of each frame's period;
+// 2. walk: the biquad recurrence, the cycle values;
+// 3. pairs: the ETA that needs no machine state (PHASE: the angle to the
+//    quarter-period lag, read from this chunk's cycle values or from the
+//    lag ring; REALFFT: the group delay);
+// 4. walk: the ETA/color machine (color, bars in phase, the phase
+//    history, HYBRID's estimate, the monotonic countdown);
+// 5. pairs: raw and shown ETA, states;
+// 6. walk: FollowFirst's ballots (its percentages from a table of the
+//    same divisions), then the lag ring keeps the chunk's last values.
+// Warp 1 walks the per-symbol Kalman step over the chunk's prices during
+// passes 2-6. Each walk fetches the next frame's inputs before the
+// frame's stores, and conditions on the walks are bitwise, not
+// short-circuit (no branches). Lanes >= S behave as inactive slots.
 // Transcendentals are the CUDA math library's sinf/cosf/expf/sqrtf (no
 // fast-math), divisions are IEEE, and the file must be compiled with
 // --fmad=false, so that each step rounds as the plain PyTorch ops do.
@@ -38,13 +55,16 @@ constexpr float kHalfPi = static_cast<float>(3.141592653589793 / 2.0);
 constexpr float kTwoPi = static_cast<float>(2.0 * 3.141592653589793);
 constexpr float kSixth = static_cast<float>(1.0 / 6.0);
 constexpr int kImax = 2147483647;
+constexpr int kThreads = 64;            // warp 0: slots; warp 1: Kalman
+constexpr int kMaxFrames = 32;          // frames a chunk holds at most
+constexpr int kChunkBytes = 40 * 1024;  // two stages and the work arrays
 
 struct TailIn {
-  const float* newest;      // [B, T]
-  const float* price_prev;  // [B, 2]
-  const float* period;      // [B, T, S]
-  const uint8_t* valid;     // [B, T, S]
-  const float* gd;          // [B, T, S]
+  const float* __restrict__ newest;      // [B, T]
+  const float* __restrict__ price_prev;  // [B, 2]
+  const float* __restrict__ period;      // [B, T, S]
+  const uint8_t* __restrict__ valid;     // [B, T, S]
+  const float* __restrict__ gd;          // [B, T, S]
 };
 
 struct TailOut {
@@ -94,13 +114,69 @@ struct TailParams {
   float init_x[3], init_var[4];
 };
 
+// Frames per chunk and the dynamic shared memory (words): the lag ring,
+// the eight work arrays [F][S] of `Work`, and two stages of newest [F],
+// period and gd [F][S] and the valid bytes as whole words.
+__host__ __device__ inline int valid_words(int F, int S) { return (F * S + 7) / 4 + 1; }
+__host__ __device__ inline int stage_words(int F, int S) {
+  return F + 2 * F * S + valid_words(F, S);
+}
+inline int frames_per_chunk(int S) {
+  const int f = kChunkBytes / (4 * (8 * S + 2 * (1 + 2 * S)) + 2 * S);
+  return f < 1 ? 1 : (f > kMaxFrames ? kMaxFrames : f);
+}
+inline size_t dynamic_smem(int F, int S, int cap) {
+  return (size_t)(cap * S + 8 * F * S + 2 * stage_words(F, S)) * 4;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
+
+// One stage of the ring: frames [i0, i0 + nf) of symbol b.
+struct Stage {
+  float* newest;     // [F]
+  float* period;     // [F][S]
+  float* gd;
+  uint32_t* valid;   // whole words covering the frames' valid bytes
+
+  __device__ Stage(uint32_t* base, int F, int S)
+      : newest(reinterpret_cast<float*>(base)), period(newest + F), gd(period + F * S),
+        valid(reinterpret_cast<uint32_t*>(gd + F * S)) {}
+
+  // Start the copies; the valid bytes go as the aligned words that hold
+  // them (a word holding a byte of the tensor lies in its allocation).
+  __device__ void load(const TailIn& in, long long x0, long long e0, int nf, int S,
+                       int tid) const {
+    const int n = nf * S;
+    for (int i = tid; i < nf; i += kThreads) cp_async4(newest + i, in.newest + x0 + i);
+    for (int i = tid; i < n; i += kThreads) {
+      cp_async4(period + i, in.period + e0 + i);
+      cp_async4(gd + i, in.gd + e0 + i);
+    }
+    const uintptr_t a = reinterpret_cast<uintptr_t>(in.valid + e0);
+    const uintptr_t w0 = a & ~uintptr_t(3);
+    const int nw = static_cast<int>(((a + n + 3) & ~uintptr_t(3)) - w0) / 4;
+    for (int i = tid; i < nw; i += kThreads) {
+      cp_async4(valid + i, reinterpret_cast<const void*>(w0 + 4 * i));
+    }
+  }
+  __device__ const uint8_t* valid_bytes(const TailIn& in, long long e0) const {
+    return reinterpret_cast<const uint8_t*>(valid) +
+           (reinterpret_cast<uintptr_t>(in.valid + e0) & 3);
+  }
+};
+
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
 // atan2(q, i) mod pi in [0, pi): octant reduction and the fitted odd
 // polynomial, as analyze/eta.py::_angle_mod_pi.
-__device__ float angle_mod_pi(float q, float i, const float* c) {
+__device__ __forceinline__ float angle_mod_pi(float q, float i, const float (&c)[9]) {
   const float ax = fabsf(i), ay = fabsf(q);
   const float t = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
   const float t2 = t * t;
@@ -145,14 +221,88 @@ __device__ __forceinline__ float dot_f(int row, const float* v) {
   }
 }
 
-__global__ void v757_tail_kernel(TailIn in, TailState init, bool has_init,
-                                 TailOut out, TailState fin, TailParams prm) {
-  extern __shared__ float ring[];   // [cap][S]
+// A chunk's work arrays, [F][S] each: what the passes over (frame, slot)
+// pairs hand to the walks over frames and back.
+struct Work {
+  float *b0, *b2, *a1, *a2;   // biquad coefficients of the frame's period
+  float* v;                   // cycle values
+  float* eta0;                // the phase (or group-delay) ETA, before the machine's state
+  float* eta;                 // the machine's ETA, then the raw ETA
+  float* color;               // color, then states
+
+  __device__ Work(uint32_t* base, int n)
+      : b0(reinterpret_cast<float*>(base)), b2(b0 + n), a1(b2 + n), a2(a1 + n), v(a2 + n),
+        eta0(v + n), eta(eta0 + n), color(eta + n) {}
+};
+
+// Warp 1: the per-symbol Kalman 4D step over the chunk's prices.
+struct Kalman {
+  float kx[4], kp[16], ema, ready;
+
+  __device__ void step(float x, bool first, const TailParams& prm, float& kal) {
+    if (first) {
+      kx[0] = x; kx[1] = prm.init_x[0]; kx[2] = prm.init_x[1]; kx[3] = prm.init_x[2];
+      for (int k = 0; k < 16; ++k) kp[k] = 0.f;
+      for (int k = 0; k < 4; ++k) kp[5 * k] = prm.init_var[k];
+      ema = x;
+      ready = 0.f;
+    }
+    float xp[4], fp[16], pp[16], col[4];
+    for (int a = 0; a < 4; ++a) xp[a] = dot_f(a, kx);
+    for (int bcol = 0; bcol < 4; ++bcol) {
+      for (int k = 0; k < 4; ++k) col[k] = kp[4 * k + bcol];
+      for (int a = 0; a < 4; ++a) fp[4 * a + bcol] = dot_f(a, col);
+    }
+    for (int a = 0; a < 4; ++a)
+      for (int bcol = 0; bcol < 4; ++bcol) pp[4 * a + bcol] = dot_f(bcol, fp + 4 * a);
+    for (int a = 0; a < 4; ++a) pp[5 * a] = pp[5 * a] + prm.q[a];
+    float y = x - xp[0];
+    float s = pp[0] + prm.r;
+    if (prm.kal_adapt) {
+      const float boost = fminf(fabsf(y) / sqrtf(s), 5.0f) * prm.adapt_gain;
+      for (int a = 0; a < 4; ++a) pp[5 * a] = pp[5 * a] + boost * prm.q[a];
+      s = pp[0] + prm.r;
+    }
+    if (prm.kal_clip) {
+      const float lim = prm.clip_std * sqrtf(s);
+      y = clampf(y, -lim, lim);
+    }
+    float gain[4];
+    for (int a = 0; a < 4; ++a) gain[a] = pp[4 * a] / s;
+    for (int a = 0; a < 4; ++a) kx[a] = xp[a] + gain[a] * y;
+    for (int a = 0; a < 4; ++a)
+      for (int bcol = 0; bcol < 4; ++bcol) kp[4 * a + bcol] = pp[4 * a + bcol] - gain[a] * pp[bcol];
+    for (int a = 0; a < 4; ++a) kp[5 * a] = fmaxf(kp[5 * a], 1e-12f);
+    kal = kx[0];
+    if (prm.kal_ema) {
+      ema = ready > 0.5f ? prm.ema_alpha * kal + prm.ema_keep * ema : kal;
+      ready = 1.f;
+      kal = ema;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(kThreads) v757_tail_kernel(
+    TailIn in, TailState init, bool has_init, TailOut out, TailState fin, TailParams prm,
+    int F) {
+  extern __shared__ uint32_t smem[];
+  __shared__ float pct_tab[33 * 33];   // 100 * n / max(active, 1) at [active][n]
   const int b = blockIdx.x;
-  const int lane = threadIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const bool walker = tid < 32;   // warp 0; warp 1 runs the Kalman filter
   const int S = prm.S, T = prm.T, cap = prm.cap;
-  const bool slot = lane < S;
+  float* ring = reinterpret_cast<float*>(smem);                  // [cap][S]
+  const Work w(smem + cap * S, F * S);
+  uint32_t* stages = smem + cap * S + 8 * F * S;
+  const int stage_step = stage_words(F, S);
+  const bool slot = walker && lane < S;
   const long long bs = (long long)b * S + lane;
+  float atan_c[9];   // in registers: the parameter block is not addressable
+  for (int k = 0; k < 9; ++k) atan_c[k] = prm.atan[k];
+  for (int k = tid; k < 33 * 33; k += kThreads) {
+    pct_tab[k] = 100.0f * static_cast<float>(k % 33) / static_cast<float>(max(k / 33, 1));
+  }
 
   // ---- state ----
   float y1 = 0.f, y2 = 0.f, vprev = 0.f, colorp = 0.f, lasteta = 0.f;
@@ -161,8 +311,11 @@ __global__ void v757_tail_kernel(TailIn in, TailState init, bool has_init,
   int bull[5] = {0, 0, 0, 0, 0}, bear[5] = {0, 0, 0, 0, 0};
   float xh0 = in.price_prev[2 * b], xh1 = in.price_prev[2 * b + 1];
   int position = -1, mode = 0, tpos = 0;
-  float kx[4] = {0.f, 0.f, 0.f, 0.f}, kp[16], ema = 0.f, ready = 0.f;
-  for (int k = 0; k < 16; ++k) kp[k] = 0.f;
+  Kalman kf;
+  for (int k = 0; k < 4; ++k) kf.kx[k] = 0.f;
+  for (int k = 0; k < 16; ++k) kf.kp[k] = 0.f;
+  kf.ema = 0.f;
+  kf.ready = 0.f;
   if (slot) {
     for (int r = 0; r < cap; ++r) ring[r * S + lane] = 0.f;
   }
@@ -182,246 +335,315 @@ __global__ void v757_tail_kernel(TailIn in, TailState init, bool has_init,
     xh0 = init.xh[2 * b]; xh1 = init.xh[2 * b + 1];
     position = init.posmode[2 * b]; mode = init.posmode[2 * b + 1];
     tpos = init.tpos[b];
-    for (int k = 0; k < 4; ++k) kx[k] = init.kx[4 * b + k];
-    for (int k = 0; k < 16; ++k) kp[k] = init.kp[16 * b + k];
-    ema = init.kema[2 * b]; ready = init.kema[2 * b + 1];
+    for (int k = 0; k < 4; ++k) kf.kx[k] = init.kx[4 * b + k];
+    for (int k = 0; k < 16; ++k) kf.kp[k] = init.kp[16 * b + k];
+    kf.ema = init.kema[2 * b]; kf.ready = init.kema[2 * b + 1];
   }
-  __syncwarp();
 
-  for (int i = 0; i < T; ++i) {
-    const int tabs = tpos + i;
-    const bool first = !has_init && i == 0;
-    const float x = in.newest[(long long)b * T + i];
-    const long long o = ((long long)b * T + i) * S + lane;
-    const float period = slot ? in.period[o] : 0.f;
-    const bool ok = slot && in.valid[o] != 0;
-    const float gd = slot ? in.gd[o] : 0.f;
+  const long long x_sym = (long long)b * T, e_sym = (long long)b * T * S;
+  const int n_chunks = (T + F - 1) / F;
+  Stage(stages, F, S).load(in, x_sym, e_sym, min(F, T), S, tid);
+  cp_async_commit();
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int i0 = ch * F, nf = min(F, T - i0), n = nf * S;
+    if (ch + 1 < n_chunks) {
+      Stage(stages + ((ch + 1) & 1) * stage_step, F, S)
+          .load(in, x_sym + i0 + F, e_sym + (long long)(i0 + F) * S, min(F, T - i0 - F), S, tid);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const Stage stg(stages + (ch & 1) * stage_step, F, S);
+    const uint8_t* stg_valid = stg.valid_bytes(in, e_sym + (long long)i0 * S);
 
-    // ---- biquad band-pass ----
-    const float omega = kTwoPi / fmaxf(period, 2.01f);
-    const float sw = sinf(omega);
-    const float z = prm.sh * omega / sw;
-    const float alpha = sw * 0.5f * (expf(z) - expf(-z));
-    const float a0 = 1.0f + alpha;
-    const float b0 = alpha / a0, b2 = -alpha / a0;
-    const float a1 = -2.0f * cosf(omega) / a0, a2 = (1.0f - alpha) / a0;
-    const bool live = ok && period > 0.f;
-    const float u = live ? b0 * x + b2 * xh0 : 0.f;
-    const float v = live ? u - a1 * y1 - a2 * y2 : 0.f;
-    y2 = y1;
-    y1 = v;
-    xh0 = xh1;
-    xh1 = x;
+    // ---- 1. every (frame, slot): the biquad coefficients, both warps ----
+    for (int idx = tid; idx < n; idx += kThreads) {
+      const float omega = kTwoPi / fmaxf(stg.period[idx], 2.01f);
+      const float sw = sinf(omega);
+      const float z = prm.sh * omega / sw;
+      const float alpha = sw * 0.5f * (expf(z) - expf(-z));
+      const float a0 = 1.0f + alpha;
+      w.b0[idx] = alpha / a0;
+      w.b2[idx] = -alpha / a0;
+      w.a1[idx] = -2.0f * cosf(omega) / a0;
+      w.a2[idx] = (1.0f - alpha) / a0;
+    }
+    __syncthreads();
 
-    // ---- ETA / color machine ----
-    const bool bullish = first ? (v >= 0.f) : (v >= vprev);
-    const float color = (ok && bullish) ? 1.f : 0.f;
-    const bool flipped = color != colorp;
-    bool changed;
-    int bars_now;
-    if (prm.prior_bars > 0) {
-      changed = flipped && ok;
-      bars_now = flipped ? 1 : bars + 1;
+    if (!walker) {
+      // ---- Kalman 4D over the chunk's prices (warp 1, every lane, uniform) ----
+      for (int f = 0; f < nf; ++f) {
+        const int i = i0 + f;
+        float kal = 0.f;
+        if (prm.kal_enable) kf.step(stg.newest[f], !has_init && i == 0, prm, kal);
+        if (lane == 0) out.kal[x_sym + i] = kal;
+      }
     } else {
-      changed = flipped && ok && !first;
-      bars_now = (first || flipped) ? 1 : bars + 1;
-    }
-    const int q = min(max(static_cast<int>(fmaxf(floorf(period / 4.0f + 0.5f), 1.0f)), 1), cap - 1);
-    int lag = (tabs - q) % cap;
-    if (lag < 0) lag += cap;
-    const float v_lag = slot ? ring[lag * S + lane] : 0.f;
-    const float m_ang = angle_mod_pi(v_lag, v, prm.atan);
-    const float dphi = m_ang > 0.f ? kPi - m_ang : 0.f;
-    const float psec = period * prm.spb;
-    float eta = clampf(dphi / kTwoPi * psec, 0.f, 1.5f * psec);
-    eta = (period > 0.f && tabs >= q) ? eta : 0.f;
-    const float bars_f = static_cast<float>(bars_now);
-    if (prm.eta_mode == 1) {
-      const float mb = 1.5f * period;
-      const float tau = clampf(gd, -mb, mb);
-      eta = period > 0.f ? fminf(fabsf(tau) * prm.spb, mb * prm.spb) : 0.f;
-    } else if (prm.eta_mode == 2) {
-      int hs[5], ho[5];
-      for (int j = 0; j < 5; ++j) {
-        hs[j] = bullish ? bull[j] : bear[j];
-        ho[j] = bullish ? bear[j] : bull[j];
+      // ---- 2. lane s: the biquad recurrence ----
+      // (each walk fetches the next frame's inputs before this frame's
+      // stores, which the compiler cannot move them past)
+      float b0n = 0.f, b2n = 0.f, a1n = 0.f, a2n = 0.f;
+      bool liven = false;
+      auto fetch_biquad = [&](int f) {
+        if (slot) {
+          const int idx = f * S + lane;
+          liven = (stg_valid[idx] != 0) & (stg.period[idx] > 0.f);
+          b0n = w.b0[idx]; b2n = w.b2[idx]; a1n = w.a1[idx]; a2n = w.a2[idx];
+        }
+      };
+      fetch_biquad(0);
+      for (int f = 0; f < nf; ++f) {
+        const float x = stg.newest[f];
+        const bool live = liven;
+        const float b0 = b0n, b2 = b2n, a1 = a1n, a2 = a2n;
+        if (f + 1 < nf) fetch_biquad(f + 1);
+        const float u = live ? b0 * x + b2 * xh0 : 0.f;
+        const float v = live ? u - a1 * y1 - a2 * y2 : 0.f;
+        if (slot) {
+          w.v[f * S + lane] = v;
+          out.cyc[(x_sym + i0 + f) * S + lane] = v;
+        }
+        y2 = y1;
+        y1 = v;
+        xh0 = xh1;
+        xh1 = x;
       }
-      const float med_same = static_cast<float>(median5(hs));
-      const float med_opp = static_cast<float>(median5(ho));
-      float e = bullish ? est0 : est1;
-      if (e <= 0.f) e = med_same;
-      if (e <= 0.f) e = med_opp;
-      if (e <= 0.f && period > 0.f) e = period;
-      if (e <= 0.f) e = fmaxf(bars_f, 1.0f);
-      if (period > 0.f && e > 2.0f * period) e = 2.0f * period;
-      const float tsec = fmaxf(fmaxf(e, bars_f), 1.0f) * prm.spb;
-      const float esec = bars_f * prm.spb;
-      const float prog = tsec > 0.f ? fminf(esec / tsec, 1.0f) : 0.f;
-      const float base = (1.0f - clampf(prog, 0.f, 1.f)) * tsec;
-      const float max_adj = tsec * 0.25f;
-      const float gd_sec = clampf(gd * prm.spb, -max_adj, max_adj);
-      float sci = clampf(base + 0.25f * gd_sec, 0.f, tsec * 1.5f);
-      sci = tsec > 0.f ? sci : 0.f;
-      const float e_struct = fmaxf(tsec - esec, 0.f);
-      const float e_hist = fmaxf(med_same * prm.spb - esec, 0.f);
-      const float w_struct = tsec > 0.f ? 0.5f : 0.f;
-      const float w_hist = med_same > 0.f ? 0.35f : 0.f;
-      const float w_sci = sci > 0.f ? 0.15f : 0.f;
-      const float wsum = w_struct + w_hist + w_sci;
-      const float blend = (e_struct * w_struct + e_hist * w_hist + sci * w_sci) / fmaxf(wsum, 1e-9f);
-      const float hyb = wsum > 0.f ? blend : e_struct;
-      float max_ref = fmaxf(fmaxf(tsec, med_same * prm.spb), period * prm.spb);
-      max_ref = max_ref <= 0.f ? prm.spb : max_ref;
-      eta = clampf(hyb, 0.f, 1.5f * max_ref);
-    }
-    eta = period > 0.f ? eta : 0.f;
+      __syncwarp();
 
-    // phase-history learning on a color change
-    const bool was_bull = colorp > 0.5f;
-    const bool store_bull = changed && was_bull && period > 0.f;
-    const bool store_bear = changed && !was_bull && period > 0.f;
-    if (store_bull) {
-      for (int j = 4; j > 0; --j) bull[j] = bull[j - 1];
-      bull[0] = bars;
-      est0 = static_cast<float>(bars);
-    }
-    if (store_bear) {
-      for (int j = 4; j > 0; --j) bear[j] = bear[j - 1];
-      bear[0] = bars;
-      est1 = static_cast<float>(bars);
-    }
+      // ---- 3. every (frame, slot): the ETA before the machine's state
+      // (PHASE: from the angle to the quarter-period lag; REALFFT: from
+      // the group delay) ----
+      if (prm.eta_mode != 2) {
+        for (int idx = lane; idx < n; idx += 32) {
+          const int f = idx / S;
+          const float period = stg.period[idx];
+          float eta;
+          if (prm.eta_mode == 1) {
+            const float mb = 1.5f * period;
+            const float tau = clampf(stg.gd[idx], -mb, mb);
+            eta = period > 0.f ? fminf(fabsf(tau) * prm.spb, mb * prm.spb) : 0.f;
+          } else {
+            const int tabs = tpos + i0 + f;
+            const int q = min(max(static_cast<int>(fmaxf(floorf(period / 4.0f + 0.5f), 1.0f)), 1), cap - 1);
+            int lag = (tabs - q) % cap;
+            if (lag < 0) lag += cap;
+            // frame tabs - q: in this chunk, or where the ring keeps it
+            const float v_lag = f >= q ? w.v[idx - q * S] : ring[lag * S + idx - f * S];
+            const float m_ang = angle_mod_pi(v_lag, w.v[idx], atan_c);
+            const float dphi = m_ang > 0.f ? kPi - m_ang : 0.f;
+            const float psec = period * prm.spb;
+            eta = clampf(dphi / kTwoPi * psec, 0.f, 1.5f * psec);
+            eta = (period > 0.f && tabs >= q) ? eta : 0.f;
+          }
+          w.eta0[idx] = eta;
+        }
+      }
+      __syncwarp();
 
-    // monotonic countdown within a phase
-    const float expected = fmaxf(lasteta - prm.spb, 0.f);
-    if (!changed && lasteta > 0.f && !first) eta = fminf(eta, expected);
-    eta = period > 0.f ? eta : 0.f;
-    if (prm.prior_bars == 0 && first) eta = 0.f;
-    eta = ok ? eta : 0.f;
-    const float eta_bars = eta / prm.spb;
-    const bool bull_c = color > 0.5f;
-    const float signed_eta = bull_c ? eta_bars : -eta_bars;
-    const bool shown = period > 0.f && ok;
-    const float disp = (bull_c && signed_eta >= 0.f && signed_eta < 1.f) ? 1.f : signed_eta;
-    const float eta_raw = shown ? signed_eta : 0.f;
-    if (slot) ring[(tabs % cap) * S + lane] = v;
-    colorp = color;
-    bars = bars_now;
-    lasteta = eta;
-    vprev = v;
+      // ---- 4. lane s: the ETA / color machine ----
+      float vn = 0.f, periodn = 0.f, gdn = 0.f, etan = 0.f;
+      bool okn = false;
+      auto fetch_machine = [&](int f) {
+        if (slot) {
+          const int idx = f * S + lane;
+          vn = w.v[idx]; periodn = stg.period[idx]; gdn = stg.gd[idx];
+          okn = stg_valid[idx] != 0;
+          if (prm.eta_mode != 2) etan = w.eta0[idx];
+        }
+      };
+      fetch_machine(0);
+      for (int f = 0; f < nf; ++f) {
+        const bool first = !has_init & (i0 + f == 0);
+        const int idx = f * S + lane;
+        const float v = vn, period = periodn, gd = gdn;
+        float eta = etan;
+        const bool ok = okn;
+        if (f + 1 < nf) fetch_machine(f + 1);
+        const bool bullish = first ? (v >= 0.f) : (v >= vprev);
+        const float color = (ok & bullish) ? 1.f : 0.f;
+        const bool flipped = color != colorp;
+        bool changed;
+        int bars_now;
+        if (prm.prior_bars > 0) {
+          changed = flipped & ok;
+          bars_now = flipped ? 1 : bars + 1;
+        } else {
+          changed = flipped & ok & !first;
+          bars_now = (first | flipped) ? 1 : bars + 1;
+        }
+        const float bars_f = static_cast<float>(bars_now);
+        if (prm.eta_mode == 2) {
+          int hs[5], ho[5];
+          for (int j = 0; j < 5; ++j) {
+            hs[j] = bullish ? bull[j] : bear[j];
+            ho[j] = bullish ? bear[j] : bull[j];
+          }
+          const float med_same = static_cast<float>(median5(hs));
+          const float med_opp = static_cast<float>(median5(ho));
+          float e = bullish ? est0 : est1;
+          if (e <= 0.f) e = med_same;
+          if (e <= 0.f) e = med_opp;
+          if (e <= 0.f && period > 0.f) e = period;
+          if (e <= 0.f) e = fmaxf(bars_f, 1.0f);
+          if (period > 0.f && e > 2.0f * period) e = 2.0f * period;
+          const float tsec = fmaxf(fmaxf(e, bars_f), 1.0f) * prm.spb;
+          const float esec = bars_f * prm.spb;
+          const float prog = tsec > 0.f ? fminf(esec / tsec, 1.0f) : 0.f;
+          const float base = (1.0f - clampf(prog, 0.f, 1.f)) * tsec;
+          const float max_adj = tsec * 0.25f;
+          const float gd_sec = clampf(gd * prm.spb, -max_adj, max_adj);
+          float sci = clampf(base + 0.25f * gd_sec, 0.f, tsec * 1.5f);
+          sci = tsec > 0.f ? sci : 0.f;
+          const float e_struct = fmaxf(tsec - esec, 0.f);
+          const float e_hist = fmaxf(med_same * prm.spb - esec, 0.f);
+          const float w_struct = tsec > 0.f ? 0.5f : 0.f;
+          const float w_hist = med_same > 0.f ? 0.35f : 0.f;
+          const float w_sci = sci > 0.f ? 0.15f : 0.f;
+          const float wsum = w_struct + w_hist + w_sci;
+          const float blend = (e_struct * w_struct + e_hist * w_hist + sci * w_sci) / fmaxf(wsum, 1e-9f);
+          const float hyb = wsum > 0.f ? blend : e_struct;
+          float max_ref = fmaxf(fmaxf(tsec, med_same * prm.spb), period * prm.spb);
+          max_ref = max_ref <= 0.f ? prm.spb : max_ref;
+          eta = clampf(hyb, 0.f, 1.5f * max_ref);
+        }
+        eta = period > 0.f ? eta : 0.f;
 
-    // ---- states + FollowFirst ----
-    const float st = ok ? (color > 0.5f ? 1.f : -1.f) : 0.f;
-    float sig = 0.f, conf = 0.f;
-    if (prm.ff_enable) {
-      const float pos_eta_v = __shfl_sync(kFull, fabsf(eta_raw), min(max(position, 0), S - 1));
-      bool has_pos = position >= 0;
-      const float pos_eta = has_pos ? pos_eta_v : 0.f;
-      if (has_pos && pos_eta <= prm.ff_exit) {
-        mode = 1 - mode;
-        position = -1;
-      }
-      has_pos = position >= 0;
-      bool elig = ok && period >= prm.ff_min_p && period <= prm.ff_max_p &&
-                  stp != 0.f && tabs >= 1;
-      if (prm.ff_single) elig = elig && !has_pos;
-      const bool same_state = st == stp;
-      const float thr = prm.ff_thr;
-      const bool pre_sell = st > 0.f && etp > 0.f && eta_raw > 0.f && etp > thr && eta_raw <= thr;
-      const bool pre_buy = st < 0.f && etp < 0.f && eta_raw < 0.f && fabsf(etp) > thr &&
-                           fabsf(eta_raw) <= thr;
-      const int pre_dir = pre_buy ? 1 : (pre_sell ? -1 : 0);
-      const bool pre_fire = elig && same_state && prm.ff_entry_pos && pre_dir != 0;
-      const int turn = (stp == -1.f && st == 1.f) ? 1 : ((stp == 1.f && st == -1.f) ? -1 : 0);
-      const bool suppressed = prm.ff_ignore_same && lastdir == turn && tabs > lastbar && turn != 0;
-      const bool turn_fire = elig && !same_state && turn != 0 && !suppressed;
-      bool fire = pre_fire || turn_fire;
-      const int dir = pre_fire ? pre_dir : turn;
-      const float value = pre_fire ? 60.0f * static_cast<float>(pre_dir)
-                                   : 100.0f * static_cast<float>(turn);
-      if (prm.ff_single) {
-        const unsigned fm = __ballot_sync(kFull, fire);
-        fire = fire && fm != 0u && lane == __ffs(fm) - 1;
-      }
-      sig = fire ? value : 0.f;
-      if (fire && (!pre_fire || prm.ff_single)) {
-        lastdir = dir;
-        lastbar = tabs;
-      }
-      const unsigned fired = __ballot_sync(kFull, fire);
-      const unsigned buys = __ballot_sync(kFull, fire && dir > 0);
-      const unsigned sells = __ballot_sync(kFull, fire && dir < 0);
-      if (prm.ff_single && fired) {
-        position = __ffs(fired) - 1;
-        mode = buys ? 0 : 1;
-      }
-      const int n_active = __popc(__ballot_sync(kFull, ok));
-      const float denom = static_cast<float>(max(n_active, 1));
-      const float buy_pct = 100.0f * static_cast<float>(__popc(buys)) / denom;
-      const float sell_pct = 100.0f * static_cast<float>(__popc(sells)) / denom;
-      conf = (n_active > 0 && buy_pct >= prm.ff_conf_pct && buy_pct >= sell_pct) ? prm.ff_lot
-           : ((n_active > 0 && sell_pct >= prm.ff_conf_pct && sell_pct > buy_pct) ? -prm.ff_lot : 0.f);
-    }
-    stp = st;
-    etp = eta_raw;
+        // phase-history learning on a color change
+        const bool was_bull = colorp > 0.5f;
+        const bool store_bull = changed & was_bull & (period > 0.f);
+        const bool store_bear = changed & !was_bull & (period > 0.f);
+        if (store_bull) {
+          for (int j = 4; j > 0; --j) bull[j] = bull[j - 1];
+          bull[0] = bars;
+          est0 = static_cast<float>(bars);
+        }
+        if (store_bear) {
+          for (int j = 4; j > 0; --j) bear[j] = bear[j - 1];
+          bear[0] = bars;
+          est1 = static_cast<float>(bars);
+        }
 
-    // ---- Kalman 4D (every lane, uniform) ----
-    float kal = 0.f;
-    if (prm.kal_enable) {
-      if (first) {
-        kx[0] = x; kx[1] = prm.init_x[0]; kx[2] = prm.init_x[1]; kx[3] = prm.init_x[2];
-        for (int k = 0; k < 16; ++k) kp[k] = 0.f;
-        for (int k = 0; k < 4; ++k) kp[5 * k] = prm.init_var[k];
-        ema = x;
-        ready = 0.f;
+        // monotonic countdown within a phase
+        const float expected = fmaxf(lasteta - prm.spb, 0.f);
+        if (!changed & (lasteta > 0.f) & !first) eta = fminf(eta, expected);
+        eta = period > 0.f ? eta : 0.f;
+        if ((prm.prior_bars == 0) & first) eta = 0.f;
+        eta = ok ? eta : 0.f;
+        if (slot) {
+          w.eta[idx] = eta;
+          w.color[idx] = color;
+        }
+        colorp = color;
+        bars = bars_now;
+        lasteta = eta;
+        vprev = v;
       }
-      float xp[4], fp[16], pp[16], col[4];
-      for (int a = 0; a < 4; ++a) xp[a] = dot_f(a, kx);
-      for (int bcol = 0; bcol < 4; ++bcol) {
-        for (int k = 0; k < 4; ++k) col[k] = kp[4 * k + bcol];
-        for (int a = 0; a < 4; ++a) fp[4 * a + bcol] = dot_f(a, col);
-      }
-      for (int a = 0; a < 4; ++a)
-        for (int bcol = 0; bcol < 4; ++bcol) pp[4 * a + bcol] = dot_f(bcol, fp + 4 * a);
-      for (int a = 0; a < 4; ++a) pp[5 * a] = pp[5 * a] + prm.q[a];
-      float y = x - xp[0];
-      float s = pp[0] + prm.r;
-      if (prm.kal_adapt) {
-        const float boost = fminf(fabsf(y) / sqrtf(s), 5.0f) * prm.adapt_gain;
-        for (int a = 0; a < 4; ++a) pp[5 * a] = pp[5 * a] + boost * prm.q[a];
-        s = pp[0] + prm.r;
-      }
-      if (prm.kal_clip) {
-        const float lim = prm.clip_std * sqrtf(s);
-        y = clampf(y, -lim, lim);
-      }
-      float gain[4];
-      for (int a = 0; a < 4; ++a) gain[a] = pp[4 * a] / s;
-      for (int a = 0; a < 4; ++a) kx[a] = xp[a] + gain[a] * y;
-      for (int a = 0; a < 4; ++a)
-        for (int bcol = 0; bcol < 4; ++bcol) kp[4 * a + bcol] = pp[4 * a + bcol] - gain[a] * pp[bcol];
-      for (int a = 0; a < 4; ++a) kp[5 * a] = fmaxf(kp[5 * a], 1e-12f);
-      kal = kx[0];
-      if (prm.kal_ema) {
-        ema = ready > 0.5f ? prm.ema_alpha * kal + prm.ema_keep * ema : kal;
-        ready = 1.f;
-        kal = ema;
-      }
-    }
+      __syncwarp();
 
-    if (slot) {
-      out.cyc[o] = v;
-      out.color[o] = color;
-      out.eta_disp[o] = shown ? disp : 0.f;
-      out.eta_raw[o] = eta_raw;
-      out.states[o] = st;
-      out.sig[o] = sig;
+      // ---- 5. every (frame, slot): raw and shown ETA, states ----
+      for (int idx = lane; idx < n; idx += 32) {
+        const float eta = w.eta[idx], color = w.color[idx];
+        const bool ok = stg_valid[idx] != 0;
+        const float eta_bars = eta / prm.spb;
+        const bool bull_c = color > 0.5f;
+        const float signed_eta = bull_c ? eta_bars : -eta_bars;
+        const bool shown = stg.period[idx] > 0.f && ok;
+        const float disp = (bull_c && signed_eta >= 0.f && signed_eta < 1.f) ? 1.f : signed_eta;
+        const float eta_raw = shown ? signed_eta : 0.f;
+        const float st = ok ? (color > 0.5f ? 1.f : -1.f) : 0.f;
+        const long long o = (x_sym + i0) * S + idx;
+        out.color[o] = color;
+        out.eta_disp[o] = shown ? disp : 0.f;
+        out.eta_raw[o] = eta_raw;
+        out.states[o] = st;
+        w.eta[idx] = eta_raw;
+        w.color[idx] = st;
+      }
+      __syncwarp();
+
+      // ---- 6. lane s: FollowFirst ----
+      float rawn = 0.f, stn = 0.f, periodf = 0.f;
+      bool okf = false;
+      auto fetch_ff = [&](int f) {
+        if (slot) {
+          const int idx = f * S + lane;
+          rawn = w.eta[idx]; stn = w.color[idx]; periodf = stg.period[idx];
+          okf = stg_valid[idx] != 0;
+        }
+      };
+      fetch_ff(0);
+      for (int f = 0; f < nf; ++f) {
+        const int tabs = tpos + i0 + f;
+        const float eta_raw = rawn, st = stn, period = periodf;
+        const bool ok = okf;
+        if (f + 1 < nf) fetch_ff(f + 1);
+        float sig = 0.f, conf = 0.f;
+        if (prm.ff_enable) {
+          const float pos_eta_v = __shfl_sync(kFull, fabsf(eta_raw), min(max(position, 0), S - 1));
+          bool has_pos = position >= 0;
+          const float pos_eta = has_pos ? pos_eta_v : 0.f;
+          if (has_pos & (pos_eta <= prm.ff_exit)) {
+            mode = 1 - mode;
+            position = -1;
+          }
+          has_pos = position >= 0;
+          bool elig = ok & (period >= prm.ff_min_p) & (period <= prm.ff_max_p) & (stp != 0.f) &
+                      (tabs >= 1);
+          if (prm.ff_single) elig = elig & !has_pos;
+          const bool same_state = st == stp;
+          const float thr = prm.ff_thr;
+          const bool pre_sell = (st > 0.f) & (etp > 0.f) & (eta_raw > 0.f) & (etp > thr) &
+                                (eta_raw <= thr);
+          const bool pre_buy = (st < 0.f) & (etp < 0.f) & (eta_raw < 0.f) & (fabsf(etp) > thr) &
+                               (fabsf(eta_raw) <= thr);
+          const int pre_dir = pre_buy ? 1 : (pre_sell ? -1 : 0);
+          const bool pre_fire = elig & same_state & (prm.ff_entry_pos != 0) & (pre_dir != 0);
+          const int turn = ((stp == -1.f) & (st == 1.f)) ? 1 : (((stp == 1.f) & (st == -1.f)) ? -1 : 0);
+          const bool suppressed = (prm.ff_ignore_same != 0) & (lastdir == turn) & (tabs > lastbar) &
+                                  (turn != 0);
+          const bool turn_fire = elig & !same_state & (turn != 0) & !suppressed;
+          bool fire = pre_fire | turn_fire;
+          const int dir = pre_fire ? pre_dir : turn;
+          const float value = pre_fire ? 60.0f * static_cast<float>(pre_dir)
+                                       : 100.0f * static_cast<float>(turn);
+          if (prm.ff_single) {
+            const unsigned fm = __ballot_sync(kFull, fire);
+            fire = fire & (fm != 0u) & (lane == __ffs(fm) - 1);
+          }
+          sig = fire ? value : 0.f;
+          if (fire & (!pre_fire | (prm.ff_single != 0))) {
+            lastdir = dir;
+            lastbar = tabs;
+          }
+          const unsigned buys = __ballot_sync(kFull, fire & (dir > 0));
+          const unsigned sells = __ballot_sync(kFull, fire & (dir < 0));
+          const unsigned fired = buys | sells;   // a firing slot has a direction
+          if ((prm.ff_single != 0) & (fired != 0u)) {
+            position = __ffs(fired) - 1;
+            mode = buys ? 0 : 1;
+          }
+          const int n_active = __popc(__ballot_sync(kFull, ok));
+          const float buy_pct = pct_tab[n_active * 33 + __popc(buys)];
+          const float sell_pct = pct_tab[n_active * 33 + __popc(sells)];
+          conf = ((n_active > 0) & (buy_pct >= prm.ff_conf_pct) & (buy_pct >= sell_pct)) ? prm.ff_lot
+               : (((n_active > 0) & (sell_pct >= prm.ff_conf_pct) & (sell_pct > buy_pct)) ? -prm.ff_lot
+                                                                                       : 0.f);
+        }
+        stp = st;
+        etp = eta_raw;
+        if (slot) out.sig[(x_sym + i0 + f) * S + lane] = sig;
+        if (lane == 0) out.conf[x_sym + i0 + f] = conf;
+      }
+
+      // the lag ring keeps the chunk's last cycle values
+      if (slot) {
+        for (int f = max(0, nf - cap); f < nf; ++f) {
+          ring[((tpos + i0 + f) % cap) * S + lane] = w.v[f * S + lane];
+        }
+      }
     }
-    if (lane == 0) {
-      out.conf[(long long)b * T + i] = conf;
-      out.kal[(long long)b * T + i] = kal;
-    }
+    __syncthreads();
   }
-  __syncwarp();
 
   // ---- final state ----
   if (slot) {
@@ -436,13 +658,15 @@ __global__ void v757_tail_kernel(TailIn in, TailState init, bool has_init,
     }
     for (int r = 0; r < cap; ++r) fin.ring[((long long)b * cap + r) * S + lane] = ring[r * S + lane];
   }
-  if (lane == 0) {
+  if (tid == 0) {
     fin.xh[2 * b] = xh0; fin.xh[2 * b + 1] = xh1;
     fin.posmode[2 * b] = position; fin.posmode[2 * b + 1] = mode;
     fin.tpos[b] = tpos + T;
-    for (int k = 0; k < 4; ++k) fin.kx[4 * b + k] = kx[k];
-    for (int k = 0; k < 16; ++k) fin.kp[16 * b + k] = kp[k];
-    fin.kema[2 * b] = ema; fin.kema[2 * b + 1] = ready;
+  }
+  if (tid == 32) {
+    for (int k = 0; k < 4; ++k) fin.kx[4 * b + k] = kf.kx[k];
+    for (int k = 0; k < 16; ++k) fin.kp[16 * b + k] = kf.kp[k];
+    fin.kema[2 * b] = kf.ema; fin.kema[2 * b + 1] = kf.ready;
   }
 }
 
@@ -463,16 +687,23 @@ TailState state_from(void* const* p) {
 // pointers in V757TailState order, or null for a fresh start. out: 8
 // pointers (cycle_values, color, eta_display, eta_raw, states, sig,
 // confluence, kalman). fin: 20 pointers in V757TailState order.
-// prm: the TailParams block (host memory, copied by value).
+// prm: the TailParams block (host memory, copied by value). Returns a
+// cudaError_t code: a shared-memory size the card cannot give, or a
+// refused launch, is returned, never skipped.
 extern "C" int v757_tail_launch(void* const* in, void* const* init,
                                 void* const* out, void* const* fin,
                                 const void* prm, int B, void* stream) {
   const TailParams p = *static_cast<const TailParams*>(prm);
-  const size_t smem = (size_t)p.cap * p.S * sizeof(float);
-  if (p.S < 1 || p.S > 32 || p.cap < 2 || smem > 48 * 1024) {
+  if (p.S < 1 || p.S > 32 || p.cap < 2 || p.T < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
+  const int F = frames_per_chunk(p.S);
+  const size_t smem = dynamic_smem(F, p.S, p.cap);
+  // the dynamic size, with the static arrays, may pass the default 48 KB
+  const cudaError_t err = cudaFuncSetAttribute(
+      v757_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   TailIn ins{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
              static_cast<const float*>(in[2]), static_cast<const uint8_t*>(in[3]),
              static_cast<const float*>(in[4])};
@@ -481,8 +712,8 @@ extern "C" int v757_tail_launch(void* const* in, void* const* init,
             static_cast<float*>(out[4]), static_cast<float*>(out[5]),
             static_cast<float*>(out[6]), static_cast<float*>(out[7])};
   TailState st0 = init ? state_from(init) : TailState{};
-  v757_tail_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      ins, st0, init != nullptr, o, state_from(fin), p);
+  v757_tail_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      ins, st0, init != nullptr, o, state_from(fin), p, F);
   return static_cast<int>(cudaGetLastError());
 }
 

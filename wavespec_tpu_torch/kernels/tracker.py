@@ -20,7 +20,7 @@ from wavespec_tpu_torch.kernels._build import check, load_library
 
 MAX_CAPACITY = 64
 MAX_SLOTS = 32
-MAX_CANDIDATES = 48 * 1024 // 20   # shared-memory staging, 20 bytes each
+MAX_CANDIDATES = 2457   # shared-memory staging: 74 KB of the card's 227 KB at one frame a stage
 
 _OUT_DTYPES = {"slot_period": torch.float32, "slot_power": torch.float32,
                "slot_fft_index": torch.int32, "slot_valid": torch.bool,

@@ -260,3 +260,54 @@ def v757_mismatches(got: dict, ref: dict, realfft: bool = False) -> list[str]:
     `V757_LIMITS` (and `REALFFT_ETA_SHARE` where `realfft`), every slot
     compared; an empty list means they agree."""
     return v757_readings(got, ref, realfft=realfft)[0]
+
+
+def tracker_stream(t: int, j: int, seed: int, batch: tuple[int, ...] = (),
+                   ties: bool = False):
+    """Tracker candidates ``[*batch, t, j]`` (periods, powers, fft indices,
+    valid) made with numpy from `seed`, for holding kernel B4 to its plain
+    version and the plain version to the JAX package.
+
+    By default: near-tolerance neighbours (2% jitter), dropouts, power
+    inversions and short leak periods. With `ties`: periods from a small
+    set with no jitter, so match costs tie exactly (25 lies as far from 24
+    as from 26, a candidate as far from two rows of one period) and some
+    lie on the 5% tolerance itself (39 against 41), and powers from {1, 2, 3}, so slot-fill and leak scores tie and the uid
+    and row tie rules decide.
+    """
+    rng = np.random.default_rng(seed)
+    shape = (*batch, t, j)
+    if ties:
+        periods = rng.choice(np.array([6.0, 9.0, 20.0, 24.0, 25.0, 26.0, 39.0, 40.0, 41.0]), size=shape)
+        powers = rng.integers(1, 4, size=shape).astype(np.float32)
+        valid = rng.random(shape) > 0.2
+    else:
+        base = rng.choice([20.0, 21.0, 35.0, 36.5, 60.0, 9.0], size=shape)
+        periods = base * (1 + 0.02 * rng.standard_normal(shape))
+        powers = rng.gamma(2.0, 2.0, size=shape).astype(np.float32)
+        valid = rng.random(shape) > 0.25
+    periods = periods.astype(np.float32)
+    fft = (4096 / np.maximum(periods, 1.0)).astype(np.int32)
+    periods = np.where(valid, periods, 0.0).astype(np.float32)
+    powers = np.where(valid, powers, 0.0).astype(np.float32)
+    return periods, powers, fft, valid
+
+
+def tail_stream(t: int, s: int, seed: int, batch: tuple[int, ...] = ()):
+    """Tail inputs (newest ``[*batch, t]``, price_prev ``[*batch, 2]``,
+    slot periods, valid and group delay ``[*batch, t, s]``) made with numpy
+    from `seed`, as `tests/test_v757_tail_pallas.py::_inputs` makes them:
+    a random walk with a period-24 cycle, slot periods drifting around
+    20-48 bars, 15% invalid frames with period 0, and noisy group delay.
+    """
+    rng = np.random.default_rng(seed)
+    tt = np.arange(t)
+    newest = (100.0 + np.cumsum(0.05 * rng.standard_normal((*batch, t)), axis=-1)
+              + 2.0 * np.sin(2 * np.pi * tt / 24)).astype(np.float32)
+    base = rng.choice([20.0, 25.0, 32.0, 40.0, 48.0], size=(*batch, 1, s))
+    drift = 1.0 + 0.01 * np.cumsum(rng.standard_normal((*batch, t, s)), axis=-2) / np.sqrt(t)
+    valid = rng.random((*batch, t, s)) > 0.15
+    periods = np.where(valid, base * drift, 0.0).astype(np.float32)
+    gd = rng.standard_normal((*batch, t, s)).astype(np.float32) * 5.0
+    price_prev = (newest[..., :2] * 0.999).astype(np.float32)
+    return newest, price_prev, periods, valid, gd
