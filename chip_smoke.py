@@ -20,7 +20,12 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
    - B1 Jacobi eigh (a warp per matrix) on 1536 and 60,000 10x10
      covariances, and on random symmetric matrices at m = 4 and m = 17,
      and B2 candidate selection on 512 and 20,000 windows (MUSIC shapes
-     (a), (b)), bitwise;
+     (a), (b)) at top_k 4 and 8, bitwise; B2 also bitwise on the
+     adversarial rows of `testing.selection_edge_rows` at the flagship
+     tables (top_k 4 and 8) and at window 1024, and on 32 planted rows at
+     the window-262144 tables (top_k 4 and 8), and it must raise past its
+     list capacity. B2 is timed at (a), (b) and window 262144 as a CUDA
+     graph of 10 calls (the kernel alone) and through its wrapper;
    - at shape (c), 128 symbols x 512 frames at window 4096: B3 band DFT
      (a two-level FFT; per window |kernel - plain| <= 1e-4 max|plain|,
      candidate lists equal to those of the float64 transform on >= 99.9%
@@ -62,6 +67,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -103,6 +109,22 @@ def cuda_ms(fn, runs: int = 5, per_run: int = 1, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / per_run)
     return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call of `fn()`: `calls` back-to-back calls
+    captured in one CUDA graph, replayed as `cuda_ms` times it, so that the
+    host's preparation of a call (the wrapper's Python) is not timed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return cuda_ms(graph.replay, per_run=3) / calls
 
 
 def planted_series(n: int, seed: int) -> np.ndarray:
@@ -153,8 +175,6 @@ def check_tracker_tail_edges(vcfg, dev) -> None:
     """B4 and B5 against their plain versions away from shape (c): tie
     rules, candidate, capacity and slot counts, the options of the tail,
     and resume splits inside the kernels' chunks (16 symbols each)."""
-    import dataclasses
-
     from wavespec_tpu_torch.analyze.eta import EtaMode
     from wavespec_tpu_torch.analyze.trackers import (TrackerConfig, TrackerState,
                                                      track_frames_plain)
@@ -237,8 +257,6 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     """B3, B4 and B5 against their plain versions at shape (c), on the
     inputs the v7.57 main path gives them; returns each kernel's record
     fields (ms, plain_ms, library_ms, bound, max_abs_err)."""
-    import dataclasses
-
     from wavespec_tpu_torch.analyze.eta import EtaMode
     from wavespec_tpu_torch.analyze.trackers import TrackerState, track_frames_plain
     from wavespec_tpu_torch.extract import frame_highpassed
@@ -555,40 +573,65 @@ def main() -> None:
             how = f"{len(parts)} calls"
         log(f"torch.linalg.eigh on the same {covs.shape[0]} matrices: {ms:.4f} ms ({how}) {tag}")
 
-    def check_b2(pseudo, band_power, label):
+    def check_b2(pseudo, band_power, label, bcfg=cfg, btables=tables):
         """B2 against its plain version: bitwise on all five outputs."""
-        ksel = ks.select_candidates(pseudo, band_power, cfg, tables)
-        psel = select_candidates_plain(pseudo, band_power, cfg, tables)
+        ksel = ks.select_candidates(pseudo, band_power, bcfg, btables)
+        psel = select_candidates_plain(pseudo, band_power, bcfg, btables)
         torch.cuda.synchronize()
         for key in ("freq", "valid", "gidx", "vals", "step0"):
             if ksel[key].dtype != psel[key].dtype or not torch.equal(ksel[key], psel[key]):
                 raise AssertionError(f"B2 music_select {label}: {key} differs from plain")
         log(f"B2 music_select {label} {pseudo.shape[0]} windows (G={pseudo.shape[-1]}, "
-            f"Kb={band_power.shape[-1]}): bitwise equal on freq, valid, gidx, vals, step0")
+            f"Kb={band_power.shape[-1]}, top_k {bcfg.top_k}, lists of "
+            f"{ks.list_size(bcfg, btables)}): bitwise equal on freq, valid, gidx, vals, step0 "
+            f"({int(psel['valid'].sum())} of {psel['valid'].numel()} kept candidates valid)")
         return max((ksel[k].float() - psel[k].float()).abs().max().item()
                    for k in ("freq", "gidx", "vals", "step0"))
 
+    def b2_bound(pseudo, band_power, bcfg, btables):
+        """B2's bound: each row read once, 17 bytes written a kept candidate
+        (4 words and the valid byte); about 4 operations a point (the
+        local-max test, or the ridge's comparison) set no bound."""
+        rows = pseudo.shape[0]
+        keep = min(2 * bcfg.top_k, (len(btables.band_slices) + 1) * bcfg.top_k)
+        return bound(nbytes(pseudo, band_power) + 17 * keep * rows,
+                     4 * rows * (pseudo.shape[-1] + band_power.shape[-1]))
+
+    def time_b2(pseudo, band_power, label, per_run, bcfg=cfg, btables=tables):
+        """B2's device time (a CUDA graph of back-to-back calls), the
+        wrapper's time (CUDA events around back-to-back calls, the host's
+        Python included), the plain version's time and the bound."""
+        args = (pseudo, band_power, bcfg, btables)
+        rec = dict(ms=graph_ms(lambda: ks.select_candidates(*args)),
+                   wrapper_ms=cuda_ms(lambda: ks.select_candidates(*args), per_run=per_run),
+                   plain_ms=cuda_ms(lambda: select_candidates_plain(*args), per_run=per_run),
+                   bound=b2_bound(*args[:2], bcfg, btables))
+        log(f"music_select {label} ({pseudo.shape[0]} rows): kernel {rec['ms']:.4f} ms "
+            f"(CUDA graph of 10 calls), through the wrapper {rec['wrapper_ms']:.4f} ms "
+            f"({per_run} calls a run), plain {rec['plain_ms']:.4f} ms, bound "
+            f"{rec['bound'][0]:.5f} ms ({rec['bound'][1]}); median of 5 runs {tag}")
+        return rec
+
     # ---- 2. kernels against their plain versions, at their main paths' shapes ----
-    timed, extra_a = {}, {}
+    timed, extra_a, b2_times = {}, {}, {}
     max_abs = {"jacobi_eigh": 0.0, "music_select": 0.0}
+    cfg8 = dataclasses.replace(cfg, top_k=8)
     for name, (x, hop, _) in shapes.items():
         covs, pseudo, band_power = kernel_inputs(x, hop)
         label = f"shape ({name})"
         extra = bisymmetric_matrices().to(dev) if name == "a" else covs[:0]
         max_abs["jacobi_eigh"] = max(max_abs["jacobi_eigh"],
                                      check_b1(torch.cat([covs, extra]), covs.shape[0], label))
-        max_abs["music_select"] = max(max_abs["music_select"],
-                                      check_b2(pseudo, band_power, label))
+        for bcfg in (cfg, cfg8):
+            max_abs["music_select"] = max(max_abs["music_select"],
+                                          check_b2(pseudo, band_power, label, bcfg))
         per_run = 20 if name == "a" else 2
-        for kname, kernel, plain, args in (
-                ("jacobi_eigh", kj.jacobi_eigh_unsorted, jacobi_eigh_plain, (covs,)),
-                ("music_select", ks.select_candidates, select_candidates_plain,
-                 (pseudo, band_power, cfg, tables))):
-            ms = cuda_ms(lambda: kernel(*args), per_run=per_run)
-            plain_ms = cuda_ms(lambda: plain(*args), per_run=per_run)
-            timed[kname, name] = (ms, plain_ms)
-            log(f"{kname} {label} ({args[0].shape[0]} rows): kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms per call (median of 5 runs of {per_run} calls) {tag}")
+        ms = cuda_ms(lambda: kj.jacobi_eigh_unsorted(covs), per_run=per_run)
+        plain_ms = cuda_ms(lambda: jacobi_eigh_plain(covs), per_run=per_run)
+        timed["jacobi_eigh", name] = (ms, plain_ms)
+        log(f"jacobi_eigh {label} ({covs.shape[0]} rows): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms per call (median of 5 runs of {per_run} calls) {tag}")
+        b2_times[name] = time_b2(pseudo, band_power, label, per_run)
         if name == "a":
             m = covs.shape[-1]
             # cyclic Jacobi, 6 sweeps of m(m-1)/2 rotations: each rotation
@@ -596,24 +639,59 @@ def main() -> None:
             # (3 flops an element) plus about 12 for its angle
             rot_ops = 6 * m * (m - 1) // 2 * (18 * m + 12)
             out_bytes = covs.numel() * 4 + covs.shape[0] * m * 4
-            keep = min(2 * cfg.top_k, (len(tables.band_slices) + 1) * cfg.top_k)
             extra_a["jacobi_eigh"] = dict(
                 library_ms=cuda_ms(lambda: torch.linalg.eigh(covs), per_run=per_run),
                 bound=bound(nbytes(covs) + out_bytes, covs.shape[0] * rot_ops))
-            # k greedy argmax passes over each row, the pseudospectrum and
-            # the band power; 5 outputs of `keep` words per window
-            extra_a["music_select"] = dict(
-                library_ms=None,
-                bound=bound(nbytes(pseudo, band_power) + 5 * 4 * keep * pseudo.shape[0],
-                            pseudo.shape[0] * cfg.top_k * (pseudo.shape[-1] + band_power.shape[-1])))
             log(f"torch.linalg.eigh on the same {covs.shape[0]} matrices: "
                 f"{extra_a['jacobi_eigh']['library_ms']:.4f} ms per call {tag}")
         else:
             eigh_b(covs, tag)
     for m, batch in ((4, 37), (17, 41)):
         check_b1_bitwise(m, batch)
-    kernel_times = {k: dict(extra_a[k], max_abs_err=max_abs[k], ms=timed[k, "a"][0],
-                            plain_ms=timed[k, "a"][1]) for k in extra_a}   # at shape (a)
+
+    # ---- B2 away from the main path's rows: adversarial edge rows at the
+    # flagship tables (top_k 4 and 8) and at window 1024, the window-262144
+    # tables (the bench_262144 MUSIC shape, 32 windows of planted rows), and
+    # a list size past the kernel's capacity ----
+    from wavespec_tpu_torch.analyze.music import GridTables
+    from wavespec_tpu_torch.testing import planted_selection_rows, selection_edge_rows
+
+    def on_card(arrays):
+        return (torch.from_numpy(a).to(dev) for a in arrays)
+
+    small = [ExtractConfig(window=1024, top_k=k, min_period=lo, max_period=hi, ar_order=10)
+             for k, lo, hi in ((2, 18.0, 52.0), (4, 9.0, 200.0))]
+    for bcfg, btables in ((cfg, tables), (cfg8, tables),
+                          *((c, GridTables(c).to(dev)) for c in small)):
+        for seed in (SEED, SEED + 1):
+            max_abs["music_select"] = max(max_abs["music_select"], check_b2(
+                *on_card(selection_edge_rows(btables, bcfg, seed)),
+                f"edge rows (seed {seed}, window {bcfg.window})", bcfg, btables))
+    big = ExtractConfig(window=262144, top_k=4, min_period=9.0, max_period=200.0,
+                        method=Method.MUSIC, ar_order=10)
+    big_tables = GridTables(big).to(dev)
+    big_rows = tuple(on_card(planted_selection_rows(big_tables, 32, SEED)))
+    for bcfg in (big, dataclasses.replace(big, top_k=8)):
+        max_abs["music_select"] = max(max_abs["music_select"], check_b2(
+            *big_rows, "window 262144, planted rows", bcfg, big_tables))
+    b2_times["262144"] = time_b2(*big_rows, "window 262144", 5, big, big_tables)
+    over = dataclasses.replace(cfg, top_k=8, music_grid_per_bin=16)
+    over_tables = GridTables(over).to(dev)
+    try:
+        ks.select_candidates(torch.zeros(1, over_tables.freqs.shape[0], device=dev),
+                             torch.zeros(1, over_tables.k_max - over_tables.k_min + 1, device=dev),
+                             over, over_tables)
+    except ValueError as err:
+        log(f"B2 music_select past its list capacity raises ValueError: {err}")
+    else:
+        raise AssertionError("B2 music_select: no error past the kernel's list capacity")
+    del big_rows, big_tables
+
+    kernel_times = {"jacobi_eigh": dict(extra_a["jacobi_eigh"], max_abs_err=max_abs["jacobi_eigh"],
+                                        ms=timed["jacobi_eigh", "a"][0],
+                                        plain_ms=timed["jacobi_eigh", "a"][1]),   # at shape (a)
+                    "music_select": dict(b2_times["a"], library_ms=None,
+                                         max_abs_err=max_abs["music_select"])}
     kernel_times.update(check_v757_kernels(xc, vcfg, dev, tag))
     # ---- 3. golden fixture ----
     data = np.load(ROOT / "tests" / "fixtures" / "golden_extract.npz")

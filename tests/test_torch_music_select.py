@@ -2,7 +2,11 @@
 kernel `csrc/music_select.cu`) with the JAX package.
 
 1. Against `select_candidates_pallas(..., interpret=True)` on the same
-   numpy pseudospectrum and band power: bitwise on all five outputs.
+   numpy pseudospectrum and band power: bitwise on all five outputs, on
+   the stages' own rows and on the adversarial rows of
+   `testing.selection_edge_rows` (plateaus, peaks at the exclusion
+   radius and on band and core edges, bands with no positive maximum,
+   more maxima than the kernel's list holds, tied band powers).
 2. Against `music_candidates(upto="prerank")` fed the JAX package's own
    series-level path, with the port fed its own: the discrete outputs
    (valid, gidx, the grid frequencies, step0) exactly equal on planted
@@ -26,9 +30,10 @@ from wavespec_tpu.ops.detrend import ehlers_highpass_detrend, ehlers_highpass_de
 from wavespec_tpu.ops.spectrum import band_indices
 from wavespec_tpu_torch import extract as pex
 from wavespec_tpu_torch.analyze import music as pmu
-from wavespec_tpu_torch.kernels.music_select import select_candidates
+from wavespec_tpu_torch.kernels.music_select import MAX_LIST, list_size, select_candidates
 from wavespec_tpu_torch.ops.detrend import HighpassMXU
 from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
+from wavespec_tpu_torch.testing import selection_edge_rows
 
 SMALL = dict(window=1024, top_k=2, min_period=18.0, max_period=52.0, ar_order=10)
 WIDE = dict(window=1024, top_k=4, min_period=9.0, max_period=200.0, ar_order=10)
@@ -58,12 +63,17 @@ def _stage_inputs(cfg, n_win, seed):
     return np.asarray(pseudo), np.asarray(band_power)
 
 
-@pytest.mark.parametrize("kw,n_win,seed", [(SMALL, 1, 9), (SMALL, 3, 1), (WIDE, 2, 4)],
-                         ids=["small-1", "small-3", "wide-2"])
+@pytest.mark.parametrize("kw,n_win,seed", [(SMALL, 1, 9), (SMALL, 3, 1), (WIDE, 2, 4),
+                                           (SMALL, None, 0), (WIDE, None, 1)],
+                         ids=["small-1", "small-3", "wide-2", "small-edge", "wide-edge"])
 def test_plain_matches_pallas_bitwise(kw, n_win, seed):
+    """n_win None: the edge rows of `selection_edge_rows` (9 windows)."""
     jcfg = jex.ExtractConfig(**kw)
     pcfg = pex.ExtractConfig(**kw)
-    pseudo, band_power = _stage_inputs(jcfg, n_win, seed)
+    if n_win is None:
+        pseudo, band_power = selection_edge_rows(pmu.GridTables(pcfg), pcfg, seed)
+    else:
+        pseudo, band_power = _stage_inputs(jcfg, n_win, seed)
     ref = select_candidates_pallas(jnp.asarray(pseudo), jnp.asarray(band_power),
                                    jcfg, interpret=True)
     got = select_candidates(torch.from_numpy(pseudo), torch.from_numpy(band_power), pcfg,
@@ -145,3 +155,67 @@ def test_band_power_width_checked():
     g = tables.freqs.shape[0]
     with pytest.raises(ValueError, match="band_power width"):
         select_candidates(torch.ones(1, g), torch.ones(1, 3), pcfg, tables)
+
+
+FLAGSHIP = dict(window=4096, top_k=4, min_period=9.0, max_period=200.0, ar_order=10)
+
+
+@pytest.mark.parametrize("top_k", [4, 8])
+def test_list_size_at_flagship_tables(top_k):
+    """The host's count of maxima one pick can exclude: at the flagship
+    tables 9 grid points lie within 1/n of a point (4 per bin each side),
+    so P = music_grid_per_bin + 1 = 5, and the kernel's lists hold
+    (top_k - 1) * P + 1."""
+    pcfg = pex.ExtractConfig(**dict(FLAGSHIP, top_k=top_k))
+    tables = pmu.GridTables(pcfg)
+    assert tables.excl_peaks == pcfg.music_grid_per_bin + 1
+    assert list_size(pcfg, tables) == (top_k - 1) * tables.excl_peaks + 1
+
+
+def test_peaks_in_exclusion_matches_brute_force():
+    """`peaks_in_exclusion` against every pair of points under the float32
+    test, on grids where rounding moves points across the radius."""
+    rng = np.random.default_rng(0)
+    for n, g in ((1024, 4), (4096, 3), (4096, 16)):
+        f = ((100 + np.arange(200) / g + rng.uniform(-1e-3, 1e-3, 200)) / n).astype(np.float32)
+        f.sort()
+        excl = np.float32(1.0 / n)
+        near = ~(np.abs(f[:, None] - f[None, :]) > excl)
+        assert pmu.peaks_in_exclusion(f, 1.0 / n) == int((near.sum(1).max() + 1) // 2)
+
+
+def test_list_size_raises_past_capacity():
+    """Lists longer than the kernel holds raise before any launch (the
+    wrapper's first step on a CUDA tensor); within capacity they do not."""
+    pcfg = pex.ExtractConfig(**dict(FLAGSHIP, top_k=8, music_grid_per_bin=16))
+    tables = pmu.GridTables(pcfg)
+    assert (pcfg.top_k - 1) * tables.excl_peaks + 1 > MAX_LIST
+    with pytest.raises(ValueError, match="kernel keeps"):
+        list_size(pcfg, tables)
+    ok = pex.ExtractConfig(**dict(FLAGSHIP, top_k=8))
+    assert list_size(ok, pmu.GridTables(ok)) <= MAX_LIST
+
+
+def test_edge_rows_cover_their_cases():
+    """The edge rows hold what they promise at the flagship tables: bands
+    with no positive local maximum, a negative maximum on point 0, more
+    maxima in a band than the kernel's list, and tied band powers."""
+    pcfg = pex.ExtractConfig(**FLAGSHIP)
+    tables = pmu.GridTables(pcfg)
+    pseudo, band_power = selection_edge_rows(tables, pcfg, 0)
+    core = tables.core.numpy() != 0
+    counts, neg0 = [], False
+    for s0, s1 in tables.band_slices:
+        x = pseudo[:, s0:s1]
+        left = np.concatenate([x[:, :1], x[:, :-1]], 1)
+        right = np.concatenate([x[:, 1:], x[:, -1:]], 1)
+        peak = (x >= left) & (x > right) & core[s0:s1]
+        counts.append((peak & (x > 0)).sum(1))
+        neg0 |= bool((peak[:, 0] & (x[:, 0] < 0)).any())
+    counts = np.stack(counts, 1)
+    assert (counts == 0).any() and neg0
+    assert counts.max() > list_size(pcfg, tables)
+    assert any(len(np.unique(r)) < r.size for r in band_power)
+    sel = select_candidates(torch.from_numpy(pseudo), torch.from_numpy(band_power), pcfg,
+                            tables)
+    assert not sel["valid"].all() and sel["valid"].any()

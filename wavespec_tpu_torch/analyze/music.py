@@ -36,6 +36,7 @@ __all__ = [
     "music_extract",
     "music_hp_period",
     "music_pseudospectrum",
+    "peaks_in_exclusion",
     "select_candidates_plain",
 ]
 
@@ -128,12 +129,35 @@ def _bin_to_gidx_table(cfg, k_min_fb: int, k_max_fb: int,
     return best_i
 
 
+def peaks_in_exclusion(freqs_band: np.ndarray, excl: float) -> int:
+    """Most local maxima of a band that one greedy pick can exclude.
+
+    A pick zeroes the points within `excl` of it, under the selection's
+    own test ``!(|f_i - f_p| > excl)`` in the grid's dtype; on a sorted
+    grid they are contiguous, and local maxima (strict on the right) lie
+    two points apart or more, so at most ceil(c / 2) of the c points that
+    test selects are maxima.
+    """
+    f = np.asarray(freqs_band)
+    excl = f.dtype.type(excl)
+    count = np.ones(f.shape, np.int64)
+    for d in range(1, f.size):
+        near = ~(np.abs(f[d:] - f[:-d]) > excl)
+        if not near.any():      # farther points are farther still
+            break
+        count[d:] += near
+        count[:-d] += near
+    return int((count.max() + 1) // 2)
+
+
 class GridTables(nn.Module):
     """Static MUSIC grid tables of one `ExtractConfig`, as buffers.
 
     freqs [G] `dtype` (merged band grids, cycles/bar), core [G] int32,
     band_off [R+1] int32 (band b is freqs[band_off[b]:band_off[b+1]]),
-    b2g [Kb] int32 (FFT band bin -> merged grid index).
+    b2g [Kb] int32 (FFT band bin -> merged grid index); `excl_peaks`
+    (int) is the most maxima one greedy pick can exclude in any band
+    (`peaks_in_exclusion`), which sizes the selection kernel's lists.
     """
 
     def __init__(self, cfg, dtype: torch.dtype = torch.float32):
@@ -147,6 +171,7 @@ class GridTables(nn.Module):
         )
         self.k_min, self.k_max = band_indices(cfg.window, cfg.min_period,
                                               cfg.max_period)
+        self.excl_peaks = max(peaks_in_exclusion(f, 1.0 / cfg.window) for f, _ in parts)
         self.register_buffer("freqs", torch.from_numpy(
             np.concatenate([f for f, _ in parts])), persistent=False)
         self.register_buffer("core", torch.from_numpy(

@@ -12,6 +12,7 @@ no fallback.
 from __future__ import annotations
 
 import ctypes
+from functools import lru_cache
 
 import torch
 
@@ -20,20 +21,33 @@ from wavespec_tpu_torch.kernels._build import check, load_library
 
 MAX_CANDIDATES = 128
 MAX_TOP_K = 8
-THREADS = 256
+MAX_LIST = 64
 
 
+@lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
     # --fmad=false: the pre-rank expression must round as the plain
     # PyTorch ops do (no contraction into fused multiply-adds).
     lib = load_library("music_select", ("--fmad=false",))
     fn = lib.music_select_launch
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float] * 4
-        + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float] * 4
+        + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib
+
+
+def list_size(cfg, tables: GridTables) -> int:
+    """Length of the per-band list of positive local maxima the kernel
+    keeps: (top_k - 1) * P + 1, where one pick excludes at most P maxima
+    (`tables.excl_peaks`), so that every greedy pick lies in the list.
+    Raises ValueError past the kernel's capacity."""
+    m = (cfg.top_k - 1) * tables.excl_peaks + 1
+    if m > MAX_LIST:
+        raise ValueError(f"top_k {cfg.top_k} with {tables.excl_peaks} maxima per exclusion "
+                         f"needs lists of {m} maxima; the kernel keeps {MAX_LIST}")
+    return m
 
 
 def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
@@ -48,9 +62,10 @@ def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
     keep = min(2 * k, c_count)
     g = tables.freqs.shape[0]
     kb = tables.k_max - tables.k_min + 1
-    if c_count > MAX_CANDIDATES or k > MAX_TOP_K:
-        raise ValueError(f"{c_count} candidates / top_k {k} exceed the kernel's "
-                         f"{MAX_CANDIDATES} / {MAX_TOP_K}")
+    if c_count > MAX_CANDIDATES or k > MAX_TOP_K or kb < k:
+        raise ValueError(f"{c_count} candidates / top_k {k} over {kb} bins exceed the "
+                         f"kernel's {MAX_CANDIDATES} / {MAX_TOP_K}")
+    cap = list_size(cfg, tables)
     for name, x, width in (("pseudo", pseudo, g), ("band_power", band_power, kb)):
         if x.dtype != torch.float32 or not x.is_cuda or x.shape[-1] != width:
             raise ValueError(f"{name}: need CUDA float32 [..., {width}], got "
@@ -66,7 +81,7 @@ def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
     b = pseudo.numel() // g
     dev = pseudo.device
     freq = torch.empty((b, keep), dtype=torch.float32, device=dev)
-    valid = torch.empty((b, keep), dtype=torch.int32, device=dev)
+    valid = torch.empty((b, keep), dtype=torch.bool, device=dev)
     gidx = torch.empty((b, keep), dtype=torch.int32, device=dev)
     vals = torch.empty((b, keep), dtype=torch.float32, device=dev)
     step0 = torch.empty((b, keep), dtype=torch.float32, device=dev)
@@ -78,16 +93,16 @@ def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
                 tables.core.data_ptr(), tables.band_off.data_ptr(),
                 tables.b2g.data_ptr(), freq.data_ptr(), valid.data_ptr(),
                 gidx.data_ptr(), vals.data_ptr(), step0.data_ptr(),
-                b, g, kb, r, k, keep, n, tables.k_min,
+                b, g, kb, r, k, keep, n, tables.k_min, cap,
                 1.0 / n, 0.5 / n, 1.0 / (cfg.music_grid_per_bin * n), 0.5 / n,
-                THREADS, stream,
+                stream,
             )
         check(status, "music_select_launch")
         select_candidates.launches += 1
     shape = (*lead, keep)
     return {
         "freq": freq.reshape(shape),
-        "valid": (valid != 0).reshape(shape),
+        "valid": valid.reshape(shape),
         "gidx": gidx.reshape(shape),
         "vals": vals.reshape(shape),
         "step0": step0.reshape(shape),

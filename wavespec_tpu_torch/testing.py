@@ -311,3 +311,126 @@ def tail_stream(t: int, s: int, seed: int, batch: tuple[int, ...] = ()):
     gd = rng.standard_normal((*batch, t, s)).astype(np.float32) * 5.0
     price_prev = (newest[..., :2] * 0.999).astype(np.float32)
     return newest, price_prev, periods, valid, gd
+
+
+SELECTION_PATTERNS = ("levels", "radius", "clusters", "edges", "zero", "negative",
+                      "one_positive", "rising", "noise")
+
+
+def selection_edge_rows(tables, cfg, seed: int):
+    """Adversarial inputs of the MUSIC candidate selection (pseudospectrum
+    ``[9, G]``, band power ``[9, Kb]``, float32) for the grid `tables` of
+    `cfg`, made with numpy from `seed`, for holding kernel B2 to its plain
+    version and the plain version to the JAX package. Band b of row r
+    takes pattern ``SELECTION_PATTERNS[(r + b) % 9]``:
+
+    - levels: values from {1, 2, 3}: plateaus (the right end of a flat top
+      is the maximum) and many exactly equal maxima;
+    - radius: equal peaks `grid_per_bin` points apart (one exclusion
+      radius, 1/n, up to float32 rounding), one point farther and one
+      nearer;
+    - clusters: around each of up to 10 centres, a local maximum on every
+      other point within the exclusion radius (as many as one pick can
+      exclude), each cluster above the next, so the j-th greedy pick is
+      the list's entry (j - 1) * P + 1, the last the kernel's list holds;
+    - edges: peaks on the band's first and last points and on the first
+      and last core points and their outer neighbours;
+    - zero: an all-zero band (no maximum: every pick is invalid);
+    - negative: negative noise whose first point is a local maximum (the
+      invalid pick is then point 1);
+    - one_positive: negative noise with one positive peak;
+    - rising: a sawtooth whose maxima rise along the band, each above all
+      before it, more of them than the kernel's list holds;
+    - noise: gamma noise, about a third of the points maxima.
+
+    The band power of row r: levels from {0, 1, 2, 3} (equal powers tie),
+    constant, zero, gamma noise, rising; in turn.
+    """
+    rng = np.random.default_rng(seed)
+    off = tables.band_off.cpu().numpy()
+    core = tables.core.cpu().numpy() != 0
+    freqs = tables.freqs.cpu().numpy()
+    excl = freqs.dtype.type(1.0 / cfg.window)
+    kb = tables.k_max - tables.k_min + 1
+    n_rows, g = len(SELECTION_PATTERNS), cfg.music_grid_per_bin
+    pseudo = np.zeros((n_rows, int(off[-1])), np.float32)
+    for r in range(n_rows):
+        for b in range(len(off) - 1):
+            s0, s1 = int(off[b]), int(off[b + 1])
+            gb = s1 - s0
+            kind = SELECTION_PATTERNS[(r + b) % n_rows]
+            x = 0.1 * rng.random(gb)
+            if kind == "levels":
+                x = rng.integers(1, 4, gb).astype(np.float64)
+            elif kind == "radius":
+                for p in range(2, gb - 1, 4 * g + 3):
+                    for d, v in ((0, 2.0), (g, 2.0), (2 * g + 1, 2.0), (3 * g, 1.9)):
+                        if p + d < gb - 1:
+                            x[p + d] = v
+            elif kind == "clusters":
+                f = freqs[s0:s1]
+                p = int(np.flatnonzero(core[s0:s1])[0]) + 2 * g
+                for c in range(10):
+                    near = np.flatnonzero(~(np.abs(f - f[p]) > excl))
+                    if near[-1] >= gb - 1:
+                        break
+                    x[near[(near - p) % 2 == 0]] = 99.0 - 10.0 * c - 0.01 * np.arange(
+                        (near[-1] - near[0]) // 2 + 1)[: int(((near - p) % 2 == 0).sum())]
+                    x[p] = 100.0 - 10.0 * c
+                    p = 2 * int(near[-1]) - p + 3
+                    if p >= gb:
+                        break
+            elif kind == "edges":
+                x[0] = 3.0
+                x[-1] = 3.0
+                where = np.flatnonzero(core[s0:s1])
+                for p in (where[0], where[-1], where[0] - 1, where[-1] + 1):
+                    if 0 <= p < gb:
+                        x[p] = 2.0 + 0.5 * rng.random()
+            elif kind == "zero":
+                x = np.zeros(gb)
+            elif kind == "negative":
+                x = -1.0 - rng.gamma(0.5, size=gb)
+                x[0] = -0.5
+            elif kind == "one_positive":
+                x = -1.0 - rng.gamma(0.5, size=gb)
+                x[gb // 2] = 1.0
+            elif kind == "rising":
+                x = np.where(np.arange(gb) % 2 == 0, 1.0 + np.arange(gb), 0.5)
+            else:
+                x = rng.gamma(0.5, size=gb)
+            pseudo[r, s0:s1] = x
+    band_power = np.zeros((n_rows, kb), np.float32)
+    for r in range(n_rows):
+        kind = r % 5
+        if kind == 0:
+            band_power[r] = rng.integers(0, 4, kb)
+        elif kind == 1:
+            band_power[r] = 2.5
+        elif kind == 3:
+            band_power[r] = rng.gamma(0.5, size=kb)
+        elif kind == 4:
+            band_power[r] = 1.0 + np.arange(kb)
+    return pseudo, band_power
+
+
+def planted_selection_rows(tables, n_rows: int, seed: int):
+    """Positive selection inputs (pseudospectrum ``[n_rows, G]``, band power
+    ``[n_rows, Kb]``, float32) made with numpy from `seed`: gamma noise
+    with, in every band, a few planted peaks of a few points' width, and
+    a band power with a few planted lines."""
+    rng = np.random.default_rng(seed)
+    off = tables.band_off.cpu().numpy()
+    kb = tables.k_max - tables.k_min + 1
+    pseudo = rng.gamma(2.0, 0.5, size=(n_rows, int(off[-1])))
+    for r in range(n_rows):
+        for b in range(len(off) - 1):
+            s0, s1 = int(off[b]), int(off[b + 1])
+            t = np.arange(s1 - s0)
+            for c in rng.integers(0, s1 - s0, 3):
+                pseudo[r, s0:s1] += rng.uniform(5.0, 50.0) * np.exp(
+                    -0.5 * ((t - c) / rng.uniform(1.0, 8.0)) ** 2)
+    band_power = rng.gamma(2.0, 0.5, size=(n_rows, kb))
+    for r in range(n_rows):
+        band_power[r, rng.integers(0, kb, 4)] += rng.uniform(10.0, 100.0, 4)
+    return pseudo.astype(np.float32), band_power.astype(np.float32)
