@@ -23,8 +23,9 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
      (a), (b)) at top_k 4 and 8, bitwise; B2 also bitwise on the
      adversarial rows of `testing.selection_edge_rows` at the flagship
      tables (top_k 4 and 8) and at window 1024, and on 32 planted rows at
-     the window-262144 tables (top_k 4 and 8), and it must raise past its
-     list capacity. B2 is timed at (a), (b) and window 262144 as a CUDA
+     the window-262144 tables (top_k 4 and 8); past its list capacity
+     (top_k 8, 16 grid points a bin) it must run and hold bitwise
+     (`check_c1_sizes`). B2 is timed at (a), (b) and window 262144 as a CUDA
      graph of 10 calls (the kernel alone) and through its wrapper;
    - at shape (c), 128 symbols x 512 frames at window 4096: B3 band DFT
      (a two-level FFT; per window |kernel - plain| <= 1e-4 max|plain|,
@@ -57,8 +58,18 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
    from a frame where the two devices' candidate lists differ, a float32
    ranking of near-equal band powers), and times windows/s and sym*bars/s (median
    of 5);
-5. prints one JSON line with every kernel's record, then, last,
-   ``{"ok": true, "device": {...}}``.
+5. drives the extraction entry point's other branches, each a main path
+   of its own with the counts reset before and read after
+   (`extraction_methods`): the golden fixture's FFT-ridge attrs, FFT
+   ridge at shapes (d) and (e) and with EHLERS + Blackman and LINEAR,
+   ESPRIT, AUTO, MUSIC without its high-pass and with the signal gate at
+   shape (f), and `extract_cycles`; each against the port on the CPU and
+   the planted periods, with windows/s, launches a call, B3 at the ridge
+   cell and B1 at ESPRIT's shapes beside their library calls and bounds;
+   before it, the kernels at the sizes past their old limits
+   (`check_c1_sizes`, with the kernel checks of step 2);
+6. prints one JSON line with every kernel's record (launches summed over
+   every main path), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no
 CPU path: without a CUDA device the script exits with an error.
@@ -235,6 +246,356 @@ def check_tracker_tail_edges(vcfg, dev) -> None:
         log(f"B5 v757_tail {label}, 16 symbols x {t} frames: within 1e-6 relative of plain "
             f"(largest |diff| {worst:.3e}), color, states, sig, confluence exact; resumed at "
             f"frame {split} equal to one shot ({int((ref['sig'] != 0).sum())} signals)")
+
+
+def check_c1_sizes(dev, tag, x, hop) -> None:
+    """The four kernels at sizes past their old limits (ROADMAP C1), each
+    held bitwise to its plain version at the first size that was refused
+    and at about twice it, and timed beside its old size: B1 at m = 33
+    and 64, B2 at top_k 8 with 16 grid points a bin (lists of 81 maxima,
+    past the kernel's 64: rounds rescan their band), B4 at (J, C, S) =
+    (24, 65, 12), (24, 128, 33), (2458, 64, 12) and (9000, 64, 12) (too
+    many candidates for shared memory: read from global memory), B5 at 33
+    and 64 slots; B4 and B5 also resumed from a split."""
+    from wavespec_tpu_torch.analyze.jacobi import jacobi_eigh_plain
+    from wavespec_tpu_torch.analyze.music import (
+        band_precondition_windows, music_pseudospectrum, select_candidates_plain)
+    from wavespec_tpu_torch.analyze.trackers import (TrackerConfig, TrackerState,
+                                                     track_frames_plain)
+    from wavespec_tpu_torch.extract import ExtractConfig, Method, extractor, frame_series
+    from wavespec_tpu_torch.kernels import jacobi as kj
+    from wavespec_tpu_torch.kernels import music_select as ks
+    from wavespec_tpu_torch.kernels import tracker as kt
+    from wavespec_tpu_torch.kernels import v757_tail as kv
+    from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
+    from wavespec_tpu_torch.pipeline.tail import V757TailState, v757_tail_plain
+    from wavespec_tpu_torch.pipeline.v757 import V757Config
+    from wavespec_tpu_torch.testing import selection_edge_rows, tail_stream, tracker_stream
+
+    # ---- B1 ----
+    times = {}
+    for m in (10, 33, 64):
+        a = torch.from_numpy(np.random.default_rng(m).standard_normal((1536, m, m))
+                             .astype(np.float32)).to(dev)
+        a = a + a.transpose(-1, -2)
+        kvals, kvecs = kj.jacobi_eigh_unsorted(a)
+        pvals, pvecs = jacobi_eigh_plain(a)
+        torch.cuda.synchronize()
+        if not (torch.equal(kvals, pvals) and torch.equal(kvecs, pvecs)
+                and torch.isfinite(kvals).all()):
+            raise AssertionError(f"B1 jacobi_eigh at m={m} differs from its plain version")
+        times[m] = cuda_ms(lambda: kj.jacobi_eigh_unsorted(a), per_run=5)
+        log(f"C1 B1 jacobi_eigh 1536 random symmetric {m}x{m} ({kj.launch_plan(m)[0] and 'wide' or 'narrow'} "
+            f"layout): bitwise equal to plain; {times[m]:.4f} ms (m = 10: {times[10]:.4f} ms) {tag}")
+
+    # ---- B2 ----
+    base = ExtractConfig(window=WINDOW, top_k=8, min_period=9.0, max_period=200.0,
+                         method=Method.MUSIC, ar_order=10)
+    for bcfg in (base, dataclasses.replace(base, music_grid_per_bin=16)):
+        ext = extractor(bcfg, dev)
+        btables = ext.tables
+        cap, rescans = ks.list_capacity(bcfg, btables)
+        hp = ext.main_hp(x - x[:1])[0]
+        windows = frame_series(hp, WINDOW, hop).contiguous()
+        pseudo, _ = music_pseudospectrum(
+            band_precondition_windows(hp, bcfg, hop, ext.band_hp), bcfg, btables)
+        band_power = power_spectrum(rfft_band(windows, btables.k_max + 1))[
+            ..., btables.k_min: btables.k_max + 1].contiguous()
+        rows = [(pseudo, band_power, "main-path rows")]
+        rows += [(*(torch.from_numpy(r).to(dev) for r in selection_edge_rows(btables, bcfg, sd)),
+                  f"edge rows (seed {sd})") for sd in (SEED, SEED + 1)]
+        for ps, bp, what in rows:
+            ksel = ks.select_candidates(ps, bp, bcfg, btables)
+            psel = select_candidates_plain(ps, bp, bcfg, btables)
+            torch.cuda.synchronize()
+            for key in ("freq", "valid", "gidx", "vals", "step0"):
+                if not torch.equal(ksel[key], psel[key]):
+                    raise AssertionError(f"C1 B2 grid {bcfg.music_grid_per_bin}, {what}: "
+                                         f"{key} differs from plain")
+        ms = graph_ms(lambda: ks.select_candidates(pseudo, band_power, bcfg, btables))
+        log(f"C1 B2 music_select top_k 8, {bcfg.music_grid_per_bin} grid points a bin "
+            f"(lists of {ks.list_size(bcfg, btables)} maxima, kernel keeps {cap}, rescans "
+            f"{rescans}): bitwise equal to plain on {pseudo.shape[0]} main-path rows and the "
+            f"edge rows; {ms:.4f} ms at {pseudo.shape[0]} rows (CUDA graph of 10 calls) {tag}")
+
+    # ---- B4 ----
+    def b4(j, c, s, t, batch, spread, ties=False):
+        cand = [torch.from_numpy(a).to(dev) for a in
+                tracker_stream(t, j, SEED + j + c + s, (batch,), ties=ties, spread=spread)]
+        tcfg = TrackerConfig(capacity=c, n_slots=s)
+        out, state = kt.track_frames_kernel(*cand, tcfg)
+        out_p, state_p = track_frames_plain(*cand, tcfg)
+        cut = t // 2 - 3
+        head = kt.track_frames_kernel(*(a[:, :cut].contiguous() for a in cand), tcfg)
+        tail = kt.track_frames_kernel(*(a[:, cut:].contiguous() for a in cand), tcfg,
+                                      init=head[1])
+        torch.cuda.synchronize()
+        bad = [k for k in out_p if not (torch.equal(out[k], out_p[k]) and torch.equal(
+            torch.cat([head[0][k], tail[0][k]], 1), out[k]))]
+        bad += [f for f in TrackerState._fields
+                if not (torch.equal(getattr(state, f), getattr(state_p, f))
+                        and torch.equal(getattr(tail[1], f), getattr(state, f)))]
+        if bad:
+            raise AssertionError(f"C1 B4 tracker J={j} C={c} S={s}: {bad} differ")
+        ms = cuda_ms(lambda: kt.track_frames_kernel(*cand, tcfg), per_run=5)
+        nr, ns, frames, _ = kt.launch_plan(j, c, s)
+        rows_used = int((state_p.uid > 0).sum(-1).max())
+        log(f"C1 B4 tracker {batch} symbols x {t} frames, J={j} C={c} S={s} ({nr} rows and "
+            f"{ns} slots a lane, {frames or 'global-memory'} frames a stage; "
+            f"{'spread' if spread else 'tie-heavy' if ties else 'jittered'} stream, up to "
+            f"{rows_used} rows in use, {int(out_p['slot_valid'][..., 32:].sum())} valid slot "
+            f"frames past slot 32): bitwise equal to plain, resumed at frame {cut} equal to "
+            f"one shot; {ms:.4f} ms ({1e3 * ms / t:.3f} us per frame) {tag}")
+
+    b4(24, 64, 12, 150, 16, True)
+    for ties in (False, True):
+        b4(24, 65, 12, 150, 16, not ties, ties)
+        b4(24, 128, 33, 150, 16, not ties, ties)
+    b4(2458, 64, 12, 20, 16, True)
+    b4(9000, 64, 12, 8, 4, True)
+
+    # ---- B5 ----
+    vcfg = V757Config()
+    for s in (32, 33, 64):
+        args = [torch.from_numpy(a).to(dev) for a in tail_stream(100, s, SEED + s, (16,))]
+        got, got_state = kv.v757_tail(*args, vcfg, 1, return_state=True)
+        ref, ref_state = v757_tail_plain(*args, vcfg, 1, return_state=True)
+        part = [a[:, :45].contiguous() if a.dim() == 3 or a.shape[-1] == 100 else a for a in args]
+        rest = [a[:, 45:].contiguous() if a.dim() == 3 or a.shape[-1] == 100 else a for a in args]
+        h_out, h_state = kv.v757_tail(*part, vcfg, 1, return_state=True)
+        r_out, r_state = kv.v757_tail(*rest, vcfg, 1, init=h_state, return_state=True)
+        torch.cuda.synchronize()
+        worst = max(tail_diff(got, ref, f"{s} slots"),
+                    tail_diff(got_state._asdict(), ref_state._asdict(), f"{s} slots state"))
+        bad = [k for k in got if not torch.equal(torch.cat([h_out[k], r_out[k]], 1), got[k])]
+        bad += [f for f in V757TailState._fields
+                if not torch.equal(getattr(r_state, f), getattr(got_state, f))]
+        if bad:
+            raise AssertionError(f"C1 B5 v757_tail {s} slots: resumed {bad} differ")
+        ms = cuda_ms(lambda: kv.v757_tail(*args, vcfg, 1), per_run=5)
+        log(f"C1 B5 v757_tail 16 symbols x 100 frames, {s} slots ({kv.slots_per_lane(s)} a "
+            f"lane): within 1e-6 relative of plain (largest |diff| {worst:.3e}), color, "
+            f"states, sig, confluence exact, resumed at frame 45 equal to one shot "
+            f"({int((ref['sig'] != 0).sum())} signals); {ms:.4f} ms {tag}")
+
+
+def jacobi_bound(a: torch.Tensor) -> tuple[float, str]:
+    """B1's bound on `a [B, m, m]`: the bytes in and out, against cyclic
+    Jacobi's 6 sweeps of m(m-1)/2 rotations, each updating two rows and
+    two columns of A and two columns of V (3 operations an element) plus
+    about 12 for its angle."""
+    b, m = a.shape[0], a.shape[-1]
+    rot_ops = 6 * m * (m - 1) // 2 * (18 * m + 12)
+    return bound(nbytes(a) + a.numel() * 4 + b * m * 4, b * rot_ops)
+
+
+def extraction_methods(dev, tag, counters, reset_counts) -> dict:
+    """The extraction entry point's other branches on the card, each
+    driven through `extract_cycles_batch` with every launch count set to 0
+    just before and read just after (returned per path), and held against
+    the same port on the CPU on its first 8 windows (on the CPU every
+    kernel takes its plain version) within `testing.limits_for` of its
+    method:
+    - the golden fixture's FFT-ridge attrs at the JAX package's 1e-4;
+    - FFT ridge at `bench.py`'s framed cell (d), window 4096, top_k 8,
+      band [18, 200], hop 16, 4096 windows, and at its hopped cell's
+      shape (e), 16384 windows, on the framed route (the hopped DFT is
+      not ported, ROADMAP A3); at (d) also with EHLERS (trend 1024) and
+      a Blackman taper, and with LINEAR;
+    - ESPRIT and AUTO at the flagship configuration (f), window 4096,
+      top_k 4, band [9, 200], ar_order 10, hop 64, 512 windows; MUSIC
+      there with `music_highpass=False` (the in-window branch) and with
+      `music_signal_gate=2.0`;
+    - `extract_cycles` on one window (MUSIC, ESPRIT).
+    The planted periods 50 and 120 must be found: by the ridge at their
+    nearest bins on the newest window; by the other methods with a median
+    relative miss over the windows within 1%; ESPRIT and MUSIC without
+    its high-pass miss the 120-bar cycle by more in the port on the CPU
+    too, as in the JAX package (ESPRIT's root lies up to ~0.7 bin off and
+    its refinement moves it at most ~0.3 bin), and are held at twice the
+    largest median miss read on these series on the CPU: 3.5% (read 1.7%)
+    and 2.5% (read 1.15%).
+    Then the timings (CUDA events, median of 5 after warm-up): windows/s
+    and hand-kernel launches per call of each path, B3 at the ridge cells
+    (d) and (e) beside `torch.fft.rfft` + slice and its bytes bound, B1 at
+    ESPRIT's two shapes beside `torch.linalg.eigh` and its bound, and the
+    Durand-Kerner root finder's launches and host time."""
+    from wavespec_tpu_torch import ExtractConfig, Method, extract_cycles, extract_cycles_batch
+    from wavespec_tpu_torch.analyze import esprit as pes
+    from wavespec_tpu_torch.analyze.eig_small import eigvals_small
+    from wavespec_tpu_torch.analyze.jacobi import jacobi_eigh, jacobi_eigh_plain
+    from wavespec_tpu_torch.analyze.music import _auto_decimation, _autocov_toeplitz, _decimate_box
+    from wavespec_tpu_torch.extract import DetrendMode, extractor, frame_series
+    from wavespec_tpu_torch.kernels import band_dft as kb
+    from wavespec_tpu_torch.kernels import jacobi as kj
+    from wavespec_tpu_torch.ops.spectrum import band_dft_plain
+    from wavespec_tpu_torch.ops.windows import WindowType
+    from wavespec_tpu_torch.testing import attrs_mismatches, limits_for
+
+    # ---- the golden fixture's FFT-ridge attrs ----
+    data = np.load(ROOT / "tests" / "fixtures" / "golden_extract.npz")
+    gcfg = ExtractConfig(window=1024, top_k=4, min_period=10.0, max_period=200.0,
+                         method=Method.FFT_RIDGE)
+    got = extract_cycles_batch(torch.from_numpy(data["series"]).to(dev), gcfg, hop=64)
+    use = (np.abs(got.cpu().numpy() - data["attrs_fft"])
+           / (1e-4 + 1e-4 * np.abs(data["attrs_fft"]))).max()
+    if not use <= 1.0:
+        raise AssertionError(f"golden attrs_fft on the card: {use:.3f} x the 1e-4 gate")
+    log(f"golden fixture attrs_fft {tuple(got.shape)} (FFT ridge, window 1024): within the "
+        f"JAX package's 1e-4 (rtol and atol); largest share of it used {use:.3f}")
+
+    ridge = ExtractConfig(window=WINDOW, top_k=8, min_period=18.0, max_period=200.0,
+                          method=Method.FFT_RIDGE)
+    flag = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
+                         method=Method.MUSIC, ar_order=10)
+    paths = {
+        "ridge (d)": (ridge, 16, 4096, 1e-2),
+        "ridge (e), framed route": (ridge, 16, 16384, 1e-2),
+        "ridge EHLERS + Blackman (d)": (dataclasses.replace(
+            ridge, detrend=DetrendMode.EHLERS, trend_period=1024,
+            taper=WindowType.BLACKMAN), 16, 4096, 1e-2),
+        "ridge LINEAR (d)": (dataclasses.replace(ridge, detrend=DetrendMode.LINEAR),
+                             16, 4096, 1e-2),
+        "ESPRIT (f)": (dataclasses.replace(flag, method=Method.ESPRIT), 64, 512, 3.5e-2),
+        "AUTO (f)": (dataclasses.replace(flag, method=Method.AUTO), 64, 512, 1e-2),
+        "MUSIC music_highpass=False (f)": (dataclasses.replace(flag, music_highpass=False),
+                                           64, 512, 2.5e-2),
+        "MUSIC music_signal_gate=2.0 (f)": (dataclasses.replace(flag, music_signal_gate=2.0),
+                                            64, 512, 1e-2),
+    }
+    # the kernels each path runs: MUSIC's series-level fast path takes its
+    # seeds from cuFFT, its in-window branch from B3
+    expect = {Method.FFT_RIDGE: ("band_dft",), Method.ESPRIT: ("jacobi_eigh",),
+              Method.AUTO: ("jacobi_eigh", "music_select", "band_dft")}
+    launches, series = {}, {}
+    for i, (name, (cfg, hop, nwin, rtol)) in enumerate(paths.items()):
+        x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, SEED + 10 + i)).to(dev)
+        series[name] = x
+        extract_cycles_batch(x, cfg, hop=hop)              # warm-up: tables, plans
+        torch.cuda.synchronize()
+        reset_counts()
+        attrs = extract_cycles_batch(x, cfg, hop=hop)
+        torch.cuda.synchronize()
+        launches[name] = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        want = expect.get(cfg.method, ("jacobi_eigh", "music_select")
+                          + (() if cfg.music_highpass else ("band_dft",)))
+        if any(launches[name].get(k, 0) == 0 for k in want):
+            raise AssertionError(f"{name}: a kernel of its path was not launched "
+                                 f"{launches[name]}")
+        if tuple(attrs.shape) != (nwin, cfg.top_k, 15) or not torch.isfinite(attrs).all():
+            raise AssertionError(f"{name}: attrs {tuple(attrs.shape)} not finite/"
+                                 f"[{nwin}, {cfg.top_k}, 15]")
+        recs = attrs.cpu().numpy()
+        found = recs[-1][recs[-1][:, 0] > 0, 2]
+        period_err = {}
+        for period in (50.0, 120.0):
+            if cfg.method == Method.FFT_RIDGE:
+                ok = np.any(np.abs(found - WINDOW / round(WINDOW / period)) <= 1e-3)
+            else:
+                near = [np.abs(r[r[:, 0] > 0, 2] - period).min() / period
+                        if (r[:, 0] > 0).any() else np.inf for r in recs]
+                period_err[period] = float(np.median(near))
+                ok = period_err[period] <= rtol
+            if not ok:
+                raise AssertionError(f"{name}: planted period {period} missed (newest window "
+                                     f"{found}, median relative miss {period_err})")
+        prefix = x[: WINDOW + 7 * hop].cpu()
+        cpu = extract_cycles_batch(prefix, cfg, hop=hop).numpy()
+        bad = attrs_mismatches(attrs[:8].cpu().numpy(), cpu, limits=limits_for(cfg.method))
+        if bad:
+            raise AssertionError(f"{name}: card vs CPU on the first 8 windows: {bad}")
+        ms = cuda_ms(lambda: extract_cycles_batch(x, cfg, hop=hop), warmup=1)
+        held = ("the nearest bins of both on the newest window" if not period_err else
+                "median relative miss over the windows " + ", ".join(
+                    f"{p:g}: {e:.4f}" for p, e in period_err.items()) + f" (tol {rtol:g})")
+        log(f"{name}: {nwin} windows, hop {hop}; planted periods held ({held}; newest "
+            f"window {', '.join(f'{p:.3f}' for p in sorted(found)[:8])}); card agrees with the CPU "
+            f"port on the first 8 windows within the {cfg.method.name} limits; hand-kernel "
+            f"launches a call {launches[name]}; {ms:.3f} ms a call, {nwin / (ms / 1e3):.1f} "
+            f"windows/s (median of 5) {tag}")
+        if name.startswith("ridge (e)"):
+            log("ridge (e): the framed route (every window framed, then kernel B3): the "
+                "JAX package's hopped DFT for this cell is not ported (ROADMAP A3)")
+
+    # ---- extract_cycles on one window ----
+    for cfg in (flag, dataclasses.replace(flag, method=Method.ESPRIT)):
+        x = series["ESPRIT (f)"]
+        one = extract_cycles(x, cfg)
+        cpu = extract_cycles(x.cpu(), cfg).numpy()
+        bad = attrs_mismatches(one.cpu().numpy(), cpu, limits=limits_for(cfg.method))
+        if bad or tuple(one.shape) != (cfg.top_k, 15):
+            raise AssertionError(f"extract_cycles {cfg.method.name}: {bad}")
+        log(f"extract_cycles {cfg.method.name} on the trailing window: {tuple(one.shape)}, "
+            f"card agrees with the CPU port; periods "
+            f"{np.round(np.sort(one[:, 2].cpu().numpy()), 3).tolist()}")
+
+    rec = {}
+    # ---- B3 at the ridge cells (d) and (e): 4096 and 16,384 windows x
+    # 4096 -> 230 bins ----
+    n_bins = 230
+    for name in ("ridge (d)", "ridge (e), framed route"):
+        windows = frame_series(series[name], WINDOW, 16).contiguous()
+        spec, ref = kb.band_dft(windows, n_bins), band_dft_plain(windows, n_bins)
+        torch.cuda.synchronize()
+        err = ((spec - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+        if not err <= 1e-4:
+            raise AssertionError(f"B3 at {name}: {err:.3e} of a window's largest bin")
+        r = dict(ms=cuda_ms(lambda: kb.band_dft(windows, n_bins), per_run=5),
+                 library_ms=cuda_ms(lambda: torch.fft.rfft(windows)[..., :n_bins], per_run=5),
+                 bound=bound(nbytes(windows, torch.view_as_real(spec)),
+                             2.5 * WINDOW * np.log2(WINDOW) * windows.shape[0]))
+        rec[f"band_dft {name}"] = r
+        log(f"B3 band_dft at {name} {tuple(windows.shape)} -> {n_bins} bins: within "
+            f"{err:.3e} of its plain version per window (tol 1e-4); kernel {r['ms']:.4f} ms, "
+            f"torch.fft.rfft + slice {r['library_ms']:.4f} ms, bound {r['bound'][0]:.4f} ms "
+            f"({r['bound'][1]}); median of 5 runs of 5 calls {tag}")
+        del windows, spec, ref
+
+    # ---- B1 at ESPRIT's two shapes (512 windows) ----
+    ecfg = dataclasses.replace(flag, method=Method.ESPRIT)
+    module = extractor(ecfg, dev)
+    x = series["ESPRIT (f)"]
+    hp = module.main_hp(x - x[:1])[0]
+    ewin = frame_series(hp, WINDOW, 64)
+    m, p = ecfg.ar_order, 2 * ecfg.top_k
+    cov = _autocov_toeplitz(_decimate_box(ewin, _auto_decimation(ecfg)), m)
+    sig = jacobi_eigh(cov)[1][..., m - p:]            # ESPRIT's signal subspace
+    ata = (sig[:, :-1].transpose(-1, -2) @ sig[:, :-1]).contiguous()
+    for label, a in (("covariance 10x10", cov.contiguous()), ("S1^T S1 8x8", ata)):
+        kvals, kvecs = kj.jacobi_eigh_unsorted(a)
+        pvals, pvecs = jacobi_eigh_plain(a)
+        torch.cuda.synchronize()
+        if not (torch.equal(kvals, pvals) and torch.equal(kvecs, pvecs)):
+            raise AssertionError(f"B1 at ESPRIT's {label}: differs from its plain version")
+        r = dict(ms=cuda_ms(lambda: kj.jacobi_eigh_unsorted(a), per_run=20),
+                 library_ms=cuda_ms(lambda: torch.linalg.eigh(a), per_run=20),
+                 bound=jacobi_bound(a))
+        rec[f"jacobi_eigh {label}"] = r
+        log(f"B1 jacobi_eigh at ESPRIT's {label} ({a.shape[0]} matrices): bitwise equal to "
+            f"plain; kernel {r['ms']:.4f} ms, torch.linalg.eigh {r['library_ms']:.4f} ms, "
+            f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}); median of 5 runs of 20 calls "
+            f"{tag}")
+
+    # ---- Durand-Kerner: launches and host time of one ESPRIT root solve ----
+    psi = pes._signal_subspace_rotation(ewin, ecfg)[0]
+    eigvals_small(psi)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eigvals_small(psi)
+        torch.cuda.synchronize()
+    n_launch = sum(e.count for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and e.self_device_time_total > 0)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        eigvals_small(psi)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    dev_ms = cuda_ms(lambda: eigvals_small(psi))
+    log(f"ESPRIT's Durand-Kerner roots of {tuple(psi.shape)}: {n_launch} kernel launches a "
+        f"call, {host_ms:.3f} ms a call on the host clock (synchronised, mean of 5), "
+        f"{dev_ms:.3f} ms between CUDA events (median of 5) {tag}")
+    return {"launches": launches, "records": rec}
 
 
 def tail_diff(got, ref, what) -> float:
@@ -422,7 +783,7 @@ def main() -> None:
     from wavespec_tpu_torch.analyze.music import (
         _autocov_toeplitz, band_precondition_windows, music_pseudospectrum,
         select_candidates_plain)
-    from wavespec_tpu_torch.extract import frame_highpassed, frame_series, music_extractor
+    from wavespec_tpu_torch.extract import extractor, frame_highpassed, frame_series
     from wavespec_tpu_torch.kernels import band_dft as kb
     from wavespec_tpu_torch.kernels import jacobi as kj
     from wavespec_tpu_torch.kernels import music_select as ks
@@ -479,8 +840,8 @@ def main() -> None:
     cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
                         method=Method.MUSIC, ar_order=10)
     rcfg = ReconstructConfig()
-    extractor = music_extractor(cfg, dev)
-    tables = extractor.tables
+    music = extractor(cfg, dev)
+    tables = music.tables
     hop_a, nwin_a = 64, 512
     hop_b, nwin_b = 1, 20000
     xa = torch.from_numpy(planted_series(WINDOW + (nwin_a - 1) * hop_a, SEED)).to(dev)
@@ -491,9 +852,9 @@ def main() -> None:
     def kernel_inputs(x, hop):
         """The covariances B1 takes and the pseudospectrum and band power
         B2 takes on the main path, from the port's own stages."""
-        hp = extractor.main_hp(x - x[:1])[0]
+        hp = music.main_hp(x - x[:1])[0]
         windows = frame_series(hp, WINDOW, hop).contiguous()
-        band_w = band_precondition_windows(hp, cfg, hop, extractor.band_hp)
+        band_w = band_precondition_windows(hp, cfg, hop, music.band_hp)
         covs = torch.stack([_autocov_toeplitz(bw, cfg.ar_order) for bw in band_w], dim=-3)
         pseudo, _ = music_pseudospectrum(band_w, cfg, tables)
         band_power = power_spectrum(rfft_band(windows, tables.k_max + 1))[
@@ -675,17 +1036,8 @@ def main() -> None:
         max_abs["music_select"] = max(max_abs["music_select"], check_b2(
             *big_rows, "window 262144, planted rows", bcfg, big_tables))
     b2_times["262144"] = time_b2(*big_rows, "window 262144", 5, big, big_tables)
-    over = dataclasses.replace(cfg, top_k=8, music_grid_per_bin=16)
-    over_tables = GridTables(over).to(dev)
-    try:
-        ks.select_candidates(torch.zeros(1, over_tables.freqs.shape[0], device=dev),
-                             torch.zeros(1, over_tables.k_max - over_tables.k_min + 1, device=dev),
-                             over, over_tables)
-    except ValueError as err:
-        log(f"B2 music_select past its list capacity raises ValueError: {err}")
-    else:
-        raise AssertionError("B2 music_select: no error past the kernel's list capacity")
     del big_rows, big_tables
+    check_c1_sizes(dev, tag, xa, hop_a)
 
     kernel_times = {"jacobi_eigh": dict(extra_a["jacobi_eigh"], max_abs_err=max_abs["jacobi_eigh"],
                                         ms=timed["jacobi_eigh", "a"][0],
@@ -828,7 +1180,13 @@ def main() -> None:
     log(f"shape (c) run_v757_batch {b_c} symbols x {t_c} frames, window {WINDOW}: "
         f"{ms:.3f} ms per call, {b_c * t_c / (ms / 1e3):.1f} sym*bars/s (median of 5) {tag}")
 
-    # ---- 5. the kernel records ----
+    # ---- 5. the extraction methods, each a main path of its own ----
+    methods = extraction_methods(dev, tag, counters, reset_counts)
+    for path in methods["launches"].values():
+        for k, n in path.items():
+            launches[k] += n
+
+    # ---- 6. the kernel records ----
     sources = {
         "jacobi_eigh": "wavespec_tpu/kernels/jacobi_pallas.py:121",
         "music_select": "wavespec_tpu/kernels/music_select_pallas.py:214",
@@ -844,6 +1202,7 @@ def main() -> None:
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+    log(f"kernel launches over every main path: {launches}")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,11 @@ Run from the repository root on a machine with a CUDA device:
 For the shapes of `chip_smoke.py` (same configurations, same planted
 series): the flagship MUSIC step (`extract_cycles_batch` +
 `decode_causal`) at (a) hop 64, 512 windows and (b) hop 1, 20,000
-windows, and the v7.57 analytics (`run_v757_batch`) at (c) 128 symbols x
-512 frames, window 4096. Per shape it warms the step up, times `repeats`
+windows, the v7.57 analytics (`run_v757_batch`) at (c) 128 symbols x
+512 frames, window 4096, FFT ridge at `bench.py`'s framed cell (d)
+(window 4096, top_k 8, band [18, 200], hop 16, 4096 windows), and ESPRIT
+and AUTO at the flagship configuration (f) (hop 64, 512 windows). Per
+shape it warms the step up, times `repeats`
 untraced steps on the host clock around a synchronised step, then traces
 one step with `torch.profiler` and prints: the untraced step times and
 their median, the device kernel time of the traced step, the device's
@@ -47,6 +50,8 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (SEED, V757_FRAMES, V757_SYMBOLS, WINDOW, bench_series,
                             planted_series)
+    import dataclasses
+
     from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig, V757Config,
                                     decode_causal, extract_cycles_batch, run_v757_batch)
 
@@ -67,6 +72,12 @@ def main() -> None:
         x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, seed)).to(dev)
         return lambda: decode_causal(extract_cycles_batch(x, cfg, hop=hop), rcfg)
 
+    def extract_step(scfg, hop, nwin, seed):
+        x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, seed)).to(dev)
+        return lambda: extract_cycles_batch(x, scfg, hop=hop)
+
+    ridge = ExtractConfig(window=WINDOW, top_k=8, min_period=18.0, max_period=200.0,
+                          method=Method.FFT_RIDGE)
     xc = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES)).to(dev)
     vcfg = V757Config()
     shapes = {
@@ -74,6 +85,14 @@ def main() -> None:
         "b": ("MUSIC step, hop 1, 20000 windows", music_step(1, 20000, SEED + 1)),
         "c": (f"run_v757_batch, {V757_SYMBOLS} symbols x {V757_FRAMES} frames, window "
               f"{WINDOW}", lambda: run_v757_batch(xc, vcfg)),
+        "d": ("FFT ridge (framed), window 4096, top_k 8, band [18, 200], hop 16, 4096 windows",
+              extract_step(ridge, 16, 4096, SEED + 10)),
+        "f-esprit": ("ESPRIT, flagship configuration, hop 64, 512 windows",
+                     extract_step(dataclasses.replace(cfg, method=Method.ESPRIT), 64, 512,
+                                  SEED + 14)),
+        "f-auto": ("AUTO, flagship configuration, hop 64, 512 windows",
+                   extract_step(dataclasses.replace(cfg, method=Method.AUTO), 64, 512,
+                                SEED + 15)),
     }
 
     for name, (what, step) in shapes.items():

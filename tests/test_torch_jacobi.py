@@ -147,3 +147,41 @@ def test_cpu_wrapper_takes_plain_path():
     pv, pw = jacobi_eigh_plain(a)
     assert jacobi_eigh_unsorted.launches == before
     assert torch.equal(vals, pv) and torch.equal(vecs, pw)
+
+
+@pytest.mark.parametrize("m", [33, 40])
+def test_orders_past_32_match_numpy(m):
+    """The orders the kernel's wide layout serves (m > 32): the plain
+    version, which the kernel equals bitwise on the card, against
+    `numpy.linalg.eigh`, eigenvalues and reconstruction at 1e-5 of the
+    largest |λ|. The reference's 6 sweeps leave random matrices of these
+    orders short of convergence (0.2 of the scale at m = 40), so the
+    pairing and rotations are checked at 12 sweeps. (The JAX package's
+    XLA Jacobi unrolls its rounds; at m = 33 its CPU compile alone takes
+    more than 10 GB, so it is not run here.)"""
+    rng = np.random.default_rng(m)
+    a = rng.standard_normal((2, m, m))
+    a = ((a + np.swapaxes(a, -1, -2)) / 2).astype(np.float32)
+    vals, vecs = (x.numpy() for x in jacobi_eigh(torch.from_numpy(a), sweeps=12))
+    nv = np.linalg.eigvalsh(a.astype(np.float64))
+    scale = np.abs(nv).max(axis=-1, keepdims=True)
+    _assert_within(vals - nv, 1e-5 * scale)
+    _assert_within(vecs @ (vals[..., :, None] * np.swapaxes(vecs, -1, -2)) - a,
+                   1e-5 * scale[..., None])
+
+
+def test_launch_plan_names_the_order_limit():
+    """The kernel's size rule, without a launch: narrow layout (pair table
+    and several matrices a block in the default 48 KB) up to m = 32, the
+    wide layout in up to 227 KB past it, and a refusal past `MAX_M`, where
+    one matrix's A and V no longer fit in a block's shared memory."""
+    from wavespec_tpu_torch.kernels.jacobi import MAX_M, launch_plan
+
+    assert launch_plan(10) == (False, 8, 21672)
+    assert launch_plan(32)[0] is False and launch_plan(33)[0] is True
+    for m in (33, 64, MAX_M):
+        wide, warps, smem = launch_plan(m)
+        assert wide and warps >= 1 and smem <= 227 * 1024
+        assert smem >= warps * 2 * m * m * 4
+    with pytest.raises(ValueError, match=f"outside \\[1, {MAX_M}\\]"):
+        launch_plan(MAX_M + 1)

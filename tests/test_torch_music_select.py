@@ -30,10 +30,11 @@ from wavespec_tpu.ops.detrend import ehlers_highpass_detrend, ehlers_highpass_de
 from wavespec_tpu.ops.spectrum import band_indices
 from wavespec_tpu_torch import extract as pex
 from wavespec_tpu_torch.analyze import music as pmu
-from wavespec_tpu_torch.kernels.music_select import MAX_LIST, list_size, select_candidates
+from wavespec_tpu_torch.kernels.music_select import (
+    MAX_LIST, check_candidates, list_capacity, list_size, select_candidates)
 from wavespec_tpu_torch.ops.detrend import HighpassMXU
 from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
-from wavespec_tpu_torch.testing import selection_edge_rows
+from wavespec_tpu_torch.testing import planted_selection_rows, selection_edge_rows
 
 SMALL = dict(window=1024, top_k=2, min_period=18.0, max_period=52.0, ar_order=10)
 WIDE = dict(window=1024, top_k=4, min_period=9.0, max_period=200.0, ar_order=10)
@@ -185,15 +186,37 @@ def test_peaks_in_exclusion_matches_brute_force():
 
 
 def test_list_size_raises_past_capacity():
-    """Lists longer than the kernel holds raise before any launch (the
-    wrapper's first step on a CUDA tensor); within capacity they do not."""
-    pcfg = pex.ExtractConfig(**dict(FLAGSHIP, top_k=8, music_grid_per_bin=16))
+    """Past the kernel's 64 list entries (top_k 8 at 16 grid points a bin
+    needs lists of (8 - 1) * 17 + 1 = 120) nothing raises any more: the
+    kernel keeps 64 and rescans a band whose full list runs out
+    (`list_capacity`). Its plain twin at those tables equals the JAX
+    package's selection bitwise, on the edge rows (clusters of P maxima
+    that a list one short fails) and on planted rows."""
+    kw = dict(WIDE, top_k=8, music_grid_per_bin=16)
+    pcfg, jcfg = pex.ExtractConfig(**kw), jex.ExtractConfig(**kw)
     tables = pmu.GridTables(pcfg)
-    assert (pcfg.top_k - 1) * tables.excl_peaks + 1 > MAX_LIST
-    with pytest.raises(ValueError, match="kernel keeps"):
-        list_size(pcfg, tables)
+    assert list_size(pcfg, tables) == 120 > MAX_LIST
+    assert list_capacity(pcfg, tables) == (MAX_LIST, True)
     ok = pex.ExtractConfig(**dict(FLAGSHIP, top_k=8))
-    assert list_size(ok, pmu.GridTables(ok)) <= MAX_LIST
+    assert list_capacity(ok, pmu.GridTables(ok)) == (list_size(ok, pmu.GridTables(ok)), False)
+    rows = [np.concatenate(parts) for parts in zip(
+        selection_edge_rows(tables, pcfg, 0), planted_selection_rows(tables, 4, 1))]
+    ref = select_candidates_pallas(*(jnp.asarray(r) for r in rows), jcfg, interpret=True)
+    got = select_candidates(*(torch.from_numpy(r) for r in rows), pcfg, tables)
+    for key in ("freq", "valid", "gidx", "vals", "step0"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]), err_msg=key)
+
+
+def test_candidates_past_128_raise():
+    """The one refusal left, the JAX package's own (`music_select_pallas.py:
+    240-241`): more than 128 candidates (bands x top_k + top_k)."""
+    kw = dict(window=4096, top_k=8, min_period=9.0, max_period=200.0, ar_order=20,
+              music_bands=16)
+    with pytest.raises(ValueError, match="candidates"):
+        check_candidates(pex.ExtractConfig(**kw), 16)
+    with pytest.raises(ValueError, match="candidate count"):
+        select_candidates_pallas(jnp.zeros((1, 8)), jnp.zeros((1, 435)), jex.ExtractConfig(**kw))
+    check_candidates(pex.ExtractConfig(**FLAGSHIP), 3)
 
 
 def test_edge_rows_cover_their_cases():

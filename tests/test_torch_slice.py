@@ -11,6 +11,7 @@ atol 1e-5). In float32 the tolerances are those of
 
 import contextlib
 import dataclasses
+import enum
 import functools
 import importlib
 import subprocess
@@ -31,7 +32,8 @@ from wavespec_tpu_torch.kernels.jacobi import jacobi_eigh_unsorted
 from wavespec_tpu_torch.kernels.music_select import select_candidates
 from wavespec_tpu_torch.ops.detrend import _hp_mxu_tables
 from wavespec_tpu_torch.testing import (RESOLVED_FRACTION, attrs_mismatches,
-                                        attrs_readings, decode_mismatches, wave_reading)
+                                        attrs_readings, decode_mismatches, limits_for,
+                                        wave_reading)
 
 ROOT = Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "tests" / "fixtures" / "golden_extract.npz"
@@ -123,18 +125,19 @@ class _Float64Names:
         return getattr(self._module, wide.get(name, name))
 
 
-# The JAX package's modules on the MUSIC batch path and the decode.
+# The JAX package's modules on the extraction paths and the decode.
 _REFERENCE_MODULES = (
     "wavespec_tpu.extract", "wavespec_tpu.reconstruct", "wavespec_tpu.analyze.music",
     "wavespec_tpu.analyze.jacobi", "wavespec_tpu.ops.detrend", "wavespec_tpu.ops.gather",
     "wavespec_tpu.ops.spectrum", "wavespec_tpu.kernels.hopped_dft",
-    "wavespec_tpu.kernels.mxu_fft",
+    "wavespec_tpu.kernels.mxu_fft", "wavespec_tpu.analyze.esprit",
+    "wavespec_tpu.analyze.eig_small", "wavespec_tpu.ops.windows",
 )
 
 
 @contextlib.contextmanager
 def jax_reference_in_float64():
-    """Run the JAX package's MUSIC path in float64: x64 on, and every
+    """Run the JAX package's extraction in float64: x64 on, and every
     float32 it names, in its code or its numpy tables, read as float64.
 
     The package casts to float32 by name (`jnp.float32`, `np.float32`),
@@ -256,9 +259,22 @@ def test_cpu_path_launches_no_kernel():
     (dict(music_highpass=False), "A5"),
 ])
 def test_unported_branches_raise(kw, item):
-    cfg = dataclasses.replace(PORT_CFG, **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port.extract_cycles_batch(torch.zeros(4200), cfg, hop=64)
+    """The six branches that raised `NotImplementedError` (naming ROADMAP
+    `item`) before they were ported now run and match the JAX package on
+    the same planted series (window 1024, 6 windows, float32): validity
+    and method_id exactly, the other fields within the limits that
+    `wavespec_tpu_torch.testing.limits_for` gives the branch's method."""
+    cfg = dataclasses.replace(PORT_CFG, window=1024, min_period=10.0, **kw)
+    defaults = jex.ExtractConfig()
+    jcfg = jex.ExtractConfig(**{
+        k: type(getattr(defaults, k))(int(v)) if isinstance(getattr(defaults, k), enum.Enum)
+        else v for k, v in dataclasses.asdict(cfg).items()})
+    x = planted_series(1024 + 5 * HOP, seed=13)
+    ref = np.asarray(jex.extract_cycles_batch(jnp.asarray(x), jcfg, hop=HOP))
+    got = port.extract_cycles_batch(torch.from_numpy(x), cfg, hop=HOP).numpy()
+    np.testing.assert_array_equal(got[..., 0] > 0, ref[..., 0] > 0)
+    np.testing.assert_array_equal(got[..., 14], ref[..., 14])
+    assert attrs_mismatches(got, ref, limits=limits_for(cfg.method)) == []
 
 
 def test_extractor_module_holds_tables_as_buffers():

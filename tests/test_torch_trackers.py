@@ -105,3 +105,38 @@ def test_cpu_tensors_take_the_plain_version():
     out, _ = track_frames_kernel(*frames, ptr.TrackerConfig(capacity=16))
     assert track_frames_kernel.launches == before
     assert out["slot_uid"].dtype == torch.int32 and out["slot_valid"].dtype == torch.bool
+
+
+def test_wide_capacity_and_slots_match_jax():
+    """Capacity past 64 rows and slots past 32 (the kernel's wide
+    layouts: 4 rows and 2 slots a lane): the plain version equals the JAX
+    package's XLA scan on a stream that keeps more than 64 rows in use
+    (`tracker_stream(spread=True)`), outputs and final state."""
+    frames = candidate_stream(60, 24, 12, spread=True)
+    jcfg = jtr.TrackerConfig(capacity=80, n_slots=36)
+    want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
+    got, gstate = ptr.track_frames(*map(torch.from_numpy, frames),
+                                   ptr.TrackerConfig(**dataclasses.asdict(jcfg)))
+    assert int((gstate.uid > 0).sum()) > 64
+    assert bool(got["slot_valid"][..., 32:].any())
+    assert_same(got, gstate, want, jax_state_np(wstate))
+
+
+def test_kernel_launch_plan():
+    """B4's size rule, without a launch: rows and slots a lane from the
+    capacity and slot count, frames a stage from J (one frame from about
+    1,900 candidates), the global-memory layout where one frame's
+    candidates pass the card's 227 KB a block, and a refusal, naming the
+    limit, only past 256 rows or 64 slots."""
+    from wavespec_tpu_torch.kernels.tracker import MAX_CAPACITY, MAX_SLOTS, launch_plan
+
+    assert launch_plan(24, 64, 12)[:3] == (2, 1, 16)
+    assert launch_plan(24, 65, 12)[:2] == (4, 1)
+    assert launch_plan(24, 128, 33)[:2] == (4, 2)
+    assert launch_plan(24, 256, 64)[:2] == (8, 2)
+    assert launch_plan(2458, 64, 12)[2] == 1
+    nr, ns, frames, smem = launch_plan(9000, 64, 12)
+    assert frames == 0 and smem == 0
+    for c, s in ((MAX_CAPACITY + 1, 12), (64, MAX_SLOTS + 1)):
+        with pytest.raises(ValueError, match="tracker kernel takes"):
+            launch_plan(24, c, s)

@@ -51,6 +51,10 @@ CASES = {
     "slots_32": (V757Config(window=256, min_period=18.0, max_period=52.0,
                             followfirst=FollowFirstConfig(n_slots=32)), 4,
                  dict(t=48, s=32, seed=7)),
+    # past 32 slots: the kernel's two slots a lane
+    "slots_33": (V757Config(window=256, min_period=18.0, max_period=52.0,
+                            followfirst=FollowFirstConfig(n_slots=33)), 4,
+                 dict(t=48, s=33, seed=8)),
 }
 
 
@@ -168,3 +172,13 @@ if __name__ == "__main__":
                 scale = max(1.0, np.abs(w).max())
                 print(name, k, f"beyond 1e-5 of the largest: {int((d > 1e-5 * scale).sum())} "
                       f"of {d.size}; largest {d.max() / scale:.3g} of it")
+
+
+def test_slots_per_lane_names_the_slot_limit():
+    """B5's size rule, without a launch: one slot a lane of the walking
+    warp up to 32, two up to 64, a refusal naming the limit past it."""
+    from wavespec_tpu_torch.kernels.v757_tail import MAX_SLOTS, slots_per_lane
+
+    assert [slots_per_lane(s) for s in (1, 32, 33, 64)] == [1, 1, 2, 2]
+    with pytest.raises(ValueError, match=f"1..{MAX_SLOTS} slots"):
+        slots_per_lane(MAX_SLOTS + 1)

@@ -1,14 +1,19 @@
 """Multi-resolution MUSIC dominant-cycle estimation (counterpart of
-`wavespec_tpu/analyze/music.py`, the rolling-batch branch).
+`wavespec_tpu/analyze/music.py`).
 
 Pipeline per window:
 
-1. Per sub-band (`_band_plan`): the series-level band high-pass and box
-   decimation (`band_precondition_windows`), the Toeplitz autocovariance
-   of order m = ar_order, and a batched Jacobi eigh (`analyze.jacobi`).
+1. Per sub-band (`_band_plan`): the band high-pass and box decimation,
+   either at series level for the rolling batch
+   (`band_precondition_windows`) or inside each window (decimate, then
+   the per-row high-pass at the decimated rate), the Toeplitz
+   autocovariance of order m = ar_order, and a batched Jacobi eigh
+   (`analyze.jacobi`).
 2. The noise-subspace pseudospectrum on each band's frequency grid via
    the sum-of-lags identity (`_pseudo_denominator_lags`), normalised by
-   its band mean and merged over bands.
+   its band mean and merged over bands; with `music_signal_gate > 0`
+   the signal directions whose eigenvalue falls below the gate times the
+   noise floor join the noise projector, per window.
 3. Candidate selection (`select_candidates_plain`, kernel twin in
    `kernels/music_select.py`): per-band greedy local maxima, ridge seeds
    from the FFT band power, dedupe and a parabola pre-rank keeping 2k.
@@ -33,6 +38,7 @@ from wavespec_tpu_torch.ops.spectrum import band_indices, power_spectrum
 __all__ = [
     "GridTables",
     "band_precondition_windows",
+    "band_rows_hp_periods",
     "music_extract",
     "music_hp_period",
     "music_pseudospectrum",
@@ -55,6 +61,17 @@ def _auto_decimation(cfg) -> int:
     d = max(1, round(gm / cfg.ar_order))
     d_max = max(1, int(cfg.min_period / 2.2))
     return max(1, min(d, d_max))
+
+
+def _decimate_box(windows: torch.Tensor, d: int) -> torch.Tensor:
+    """Box-prefiltered decimation by d: the last ``(n // d) * d`` samples,
+    averaged in groups of d."""
+    if d == 1:
+        return windows
+    n = windows.shape[-1]
+    n_keep = (n // d) * d
+    x = windows[..., n - n_keep:]
+    return x.reshape(*x.shape[:-1], n_keep // d, d).mean(dim=-1)
 
 
 def _band_plan(cfg) -> list[tuple[float, float, int]]:
@@ -80,6 +97,12 @@ def _band_plan(cfg) -> list[tuple[float, float, int]]:
 def band_hp_periods(cfg) -> tuple[int, ...]:
     """Per-band preconditioning high-pass periods (full-rate bars)."""
     return tuple(max(4, int(1.5 * hi)) for (_, hi, _) in _band_plan(cfg))
+
+
+def band_rows_hp_periods(cfg) -> tuple[int, ...]:
+    """Per-band high-pass periods of the in-window branch, at each band's
+    decimated rate."""
+    return tuple(max(4, int(1.5 * hi / d)) for (_, hi, d) in _band_plan(cfg))
 
 
 def _freq_grid_band_np(cfg, lo: float, hi: float, dtype=np.float32):
@@ -242,13 +265,15 @@ def _autocov_toeplitz(windows: torch.Tensor, m: int) -> torch.Tensor:
 
 
 def _pseudo_denominator_lags(vecs_b: torch.Tensor, freqs_b: torch.Tensor,
-                             m: int, d: int) -> torch.Tensor:
+                             m: int, d: int, w_b: torch.Tensor | None = None) -> torch.Tensor:
     """``||a(w)^H E_n||^2`` on the grid via the sum-of-lags identity:
     g_0 + 2 sum_{lag>=1} g_lag cos(2 pi w d lag), g_lag the lag-diagonal
-    sums of E E^T. vecs_b ``[..., m, P]``, freqs_b ``[G]`` -> ``[..., G]``."""
+    sums of E W E^T. vecs_b ``[..., m, P]``, optional column weights
+    w_b ``[..., 1, P]``, freqs_b ``[G]`` -> ``[..., G]``."""
+    ew = vecs_b if w_b is None else vecs_b * w_b
     glags = []
     for lag in range(m):
-        corr = (vecs_b[..., lag:, :] * vecs_b[..., : m - lag, :]).sum(dim=(-2, -1))
+        corr = (ew[..., lag:, :] * vecs_b[..., : m - lag, :]).sum(dim=(-2, -1))
         glags.append(corr if lag == 0 else 2.0 * corr)
     g = torch.stack(glags, dim=-1)                          # [..., m]
     lags = torch.arange(m, dtype=vecs_b.dtype, device=vecs_b.device) * d
@@ -256,8 +281,28 @@ def _pseudo_denominator_lags(vecs_b: torch.Tensor, freqs_b: torch.Tensor,
     return torch.einsum("gl,...l->...g", torch.cos(ang), g)
 
 
-def music_pseudospectrum(band_windows, cfg, tables: GridTables):
-    """Merged noise-subspace pseudospectrum from pre-built band windows.
+def _band_covariances_in_window(windows: torch.Tensor, cfg, rows_hp) -> list:
+    """The in-window branch's band covariances: each band decimated
+    inside the window, the R decimated windows zero-padded to the longest
+    and high-passed as rows (`rows_hp`, an `ops.detrend.HighpassMXU` at
+    `band_rows_hp_periods`; the filter is causal, so the padding never
+    reaches the real prefix), then each band's Toeplitz autocovariance."""
+    m = cfg.ar_order
+    decs = [_decimate_box(windows, d) for (_, _, d) in _band_plan(cfg)]
+    n_max = max(dw.shape[-1] for dw in decs)
+    stacked = torch.stack(
+        [torch.nn.functional.pad(dw, (0, n_max - dw.shape[-1])) for dw in decs], dim=-2)
+    hp_rows = rows_hp.rows(stacked)
+    return [_autocov_toeplitz(hp_rows[..., bi, : dw.shape[-1]], m)
+            for bi, dw in enumerate(decs)]
+
+
+def music_pseudospectrum(band_windows, cfg, tables: GridTables, windows=None,
+                         rows_hp=None):
+    """Merged noise-subspace pseudospectrum, from pre-built band windows
+    (`band_precondition_windows`) or, with `band_windows` None, from
+    `windows` ``[..., n]`` by the in-window branch (`rows_hp`, see
+    `_band_covariances_in_window`).
 
     Returns (pseudo ``[..., G]``, eigvals ``[..., R, m]`` ascending).
     """
@@ -270,16 +315,27 @@ def music_pseudospectrum(band_windows, cfg, tables: GridTables):
             f"ar_order={m} too small: need ar_order >= "
             f"2*min(music_signals_per_band, top_k)+2 = {p + 2}"
         )
-    if cfg.music_signal_gate > 0:
-        raise NotImplementedError(
-            "music_signal_gate > 0 is not ported yet (ROADMAP A5)")
-    r = torch.stack([_autocov_toeplitz(bw, m) for bw in band_windows], dim=-3)
+    if band_windows is not None:
+        covs = [_autocov_toeplitz(bw, m) for bw in band_windows]
+    else:
+        covs = _band_covariances_in_window(windows, cfg, rows_hp)
+    r = torch.stack(covs, dim=-3)
     eigvals, eigvecs = jacobi_eigh(r)                  # [..., R, m], [..., R, m, m]
+    gate_on = cfg.music_signal_gate > 0
+    if gate_on:
+        # signal directions below gate x noise floor join the projector
+        base_noise = torch.arange(m, device=eigvals.device) < (m - p)
+        noise_floor = eigvals[..., : m - p].mean(dim=-1, keepdim=True)
+        is_noise = eigvals <= cfg.music_signal_gate * torch.clamp(noise_floor, min=1e-30)
+        w_noise = (is_noise | base_noise).to(eigvecs.dtype)
     pseudos = []
     for bi, ((s0, s1), (_, _, d)) in enumerate(zip(tables.band_slices, tables.bands)):
-        # eigvals ascend, so the noise subspace is the first m-p columns
-        den = _pseudo_denominator_lags(
-            eigvecs[..., bi, :, : m - p], tables.freqs[s0:s1], m, d)
+        if gate_on:
+            vecs_b, w_b = eigvecs[..., bi, :, :], w_noise[..., bi, None, :]
+        else:
+            # eigvals ascend, so the noise subspace is the first m-p columns
+            vecs_b, w_b = eigvecs[..., bi, :, : m - p], None
+        den = _pseudo_denominator_lags(vecs_b, tables.freqs[s0:s1], m, d, w_b)
         pseudo_b = 1.0 / torch.clamp(den, min=1e-12)
         pseudos.append(pseudo_b / pseudo_b.mean(dim=-1, keepdim=True))
     return torch.cat(pseudos, dim=-1), eigvals
@@ -616,26 +672,41 @@ def hp_gain_compensate(amp: torch.Tensor, psi: torch.Tensor, freq: torch.Tensor,
     return amp / torch.clamp(h_mag, min=0.05), psi - torch.atan2(h_im, h_re)
 
 
-def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec: torch.Tensor,
-                  tables: GridTables) -> torch.Tensor:
-    """MUSIC extraction over windows ``[..., n]`` that already carry the
-    series-level MUSIC high-pass (the `pre_highpassed=True` branch of the
-    reference), with the per-band covariance inputs `band_windows` and
-    the seed spectra `seed_spec` (complex bins 0..k_max).
+def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec,
+                  tables: GridTables, pre_highpassed: bool = True, main_hp=None,
+                  rows_hp=None) -> torch.Tensor:
+    """MUSIC extraction over windows ``[..., n]``.
+
+    `pre_highpassed`: the windows already carry the series-level MUSIC
+    high-pass (the rolling batch); otherwise, where `cfg.music_highpass`
+    is set, each window is anchored on its first sample and high-passed
+    at `music_hp_period` (`main_hp`, an `ops.detrend.HighpassMXU` at that
+    period). `band_windows`: the per-band covariance inputs from
+    `band_precondition_windows`, or None for the in-window branch
+    (`rows_hp`). `seed_spec`: complex bins 0..k_max of the windows, or
+    None for their framed spectrum (`ops.spectrum.framed_spectrum`:
+    kernel B3 on the card).
 
     Returns ``[..., top_k, 15]`` stride-15 attrs with method_id = 1.
     """
     from wavespec_tpu_torch.extract import Method, _attrs_from_peaks
     from wavespec_tpu_torch.kernels.music_select import select_candidates
+    from wavespec_tpu_torch.ops.spectrum import framed_spectrum
 
     n = cfg.window
     k = cfg.top_k
     m = cfg.ar_order
     p = 2 * min(cfg.music_signals_per_band, k)
     hp_period = music_hp_period(cfg)
+    if cfg.music_highpass and not pre_highpassed:
+        # the first-sample anchor zeroes the cold-start filter's level step
+        windows = windows - windows[..., :1]
+        windows = main_hp(windows)[..., 0, :]
 
-    pseudo, eigvals = music_pseudospectrum(band_windows, cfg, tables)
+    pseudo, eigvals = music_pseudospectrum(band_windows, cfg, tables, windows, rows_hp)
     k_min, k_max = tables.k_min, tables.k_max
+    if seed_spec is None:
+        seed_spec = framed_spectrum(windows, k_max + 1)
     band_power = power_spectrum(seed_spec)[..., k_min: k_max + 1]
     sel = select_candidates(pseudo, band_power.contiguous(), cfg, tables)
     gidx, vals = sel["gidx"].to(torch.int64), sel["vals"]
@@ -644,7 +715,8 @@ def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec: torch.Ten
 
     amp = torch.sqrt(a * a + b * b)
     psi = torch.atan2(a, b)  # x = a cos + b sin = amp * sin(w t + psi)
-    amp, psi = hp_gain_compensate(amp, psi, freq, hp_period)
+    if cfg.music_highpass:
+        amp, psi = hp_gain_compensate(amp, psi, freq, hp_period)
     omega = 2.0 * math.pi * freq
     phase_end = omega * (n - 1) + psi
 

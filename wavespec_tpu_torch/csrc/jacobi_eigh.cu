@@ -26,6 +26,10 @@
 // 3. columns, A R and V R: lane (g, i) updates row i's p and q entries.
 // Lanes past G*m idle. The chain per lane is about m/2 rotations of two
 // elements a phase instead of a thread's ~m^2 updates a round.
+// For m > 32 (the wide instantiation) a warp holds one matrix and a lane
+// takes rotations k, k + 32, ... of a round, then columns (rows) j,
+// j + 32, ...; the pair table stays in global memory (L1) so that A and
+// V alone fill shared memory, which sets the largest m (kMaxM).
 // The rotation is the half angle t = 0.5*atan2(y, x), with the exact
 // y == 0 case forced to the identity: real symmetric Toeplitz
 // covariances reach exact zeros mid-sweep, and c = s = 0 would wipe out
@@ -43,10 +47,12 @@
 
 namespace {
 
-constexpr int kMaxM = 32;
+constexpr int kNarrowM = 32;     // the narrow instantiation's largest m
+constexpr int kMaxM = 160;       // A and V of one matrix in 200 KB
 constexpr int kMaxHalf = kMaxM / 2;
 constexpr int kMaxWarps = 8;
 constexpr int kSmemDefault = 48 * 1024;
+constexpr int kSmemOptin = 227 * 1024;
 
 struct Layout {
   int m, mm, g, slot, half;   // g: matrices a warp holds; slot: floats per matrix
@@ -64,6 +70,7 @@ __host__ __device__ inline Layout layout(int m, int half) {
   return l;
 }
 
+template <bool kWide>
 __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
                                    float* __restrict__ vals,
                                    float* __restrict__ vecs,
@@ -74,9 +81,14 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
   const Layout L = layout(m, half);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  int* pq = reinterpret_cast<int*>(smem);
-  const int n_pairs = n_rounds * half;
-  for (int e = threadIdx.x; e < 2 * n_pairs; e += blockDim.x) pq[e] = pairs[e];
+  // the pair table: in shared memory (narrow), or read through L1 (wide)
+  const int n_pairs = kWide ? 0 : n_rounds * half;
+  const int* pq = pairs;
+  if (!kWide) {
+    int* tbl = reinterpret_cast<int*>(smem);
+    for (int e = threadIdx.x; e < 2 * n_pairs; e += blockDim.x) tbl[e] = pairs[e];
+    pq = tbl;
+  }
   float* A = smem + 2 * n_pairs + warp * L.warp_floats;
   float* V = A + L.g * L.slot;
   float* cs = V + L.g * L.slot;   // [g][half] (c, s)
@@ -109,13 +121,18 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
   float2* cs_r = reinterpret_cast<float2*>(cs) + (rot_lane ? rg : 0) * half;
   const float2* cs_e = reinterpret_cast<const float2*>(cs) + (el_lane ? eg : 0) * half;
 
+  // a lane's rotations, columns and rows: one each (narrow), or every
+  // 32nd (wide)
+  const int rot_end = kWide ? half : k_rot + 1;
+  const int el_end = kWide ? m : e_idx + 1;
+
   for (int sw = 0; sw < sweeps; ++sw) {
     for (int r = 0; r < n_rounds; ++r) {
       const int* rp = pq + 2 * r * half;
       // 1. Rotation of pair k_rot from the matrix at round start.
-      if (rot_lane) {
-        const int p = rp[2 * k_rot];
-        const int q = rp[2 * k_rot + 1];
+      for (int kr = k_rot; rot_lane & (kr < rot_end); kr += 32) {
+        const int p = rp[2 * kr];
+        const int q = rp[2 * kr + 1];
         float c = 1.0f, s = 0.0f;
         if (p >= 0) {
           const float y = 2.0f * Ar[p * m + q];
@@ -133,12 +150,11 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
             }
           }
         }
-        cs_r[k_rot] = make_float2(c, s);
+        cs_r[kr] = make_float2(c, s);
       }
       __syncwarp();
       // 2. Rows: R^T A, lane = column j.
-      if (el_lane) {
-        const int j = e_idx;
+      for (int j = e_idx; el_lane & (j < el_end); j += 32) {
         for (int k = 0; k < half; ++k) {
           const int p = rp[2 * k];
           const int q = rp[2 * k + 1];
@@ -152,8 +168,7 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
       }
       __syncwarp();
       // 3. Columns: (R^T A) R and V R, lane = row i.
-      if (el_lane) {
-        const int i = e_idx;
+      for (int i = e_idx; el_lane & (i < el_end); i += 32) {
         for (int k = 0; k < half; ++k) {
           const int p = rp[2 * k];
           const int q = rp[2 * k + 1];
@@ -173,9 +188,9 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
     }
   }
 
-  if (el_lane) {
+  for (int i = e_idx; el_lane & (i < el_end); i += 32) {
     const long long b = first + eg;
-    if (b < batch) vals[b * m + e_idx] = Ae[e_idx * m + e_idx];
+    if (b < batch) vals[b * m + i] = Ae[i * m + i];
   }
   for (int e = lane; e < L.g * L.mm; e += 32) {
     const int g = e / L.mm;
@@ -183,6 +198,22 @@ __global__ void jacobi_eigh_kernel(const float* __restrict__ a,
     const long long b = first + g;
     if (b < batch) vecs[b * L.mm + el] = V[g * L.slot + el];
   }
+}
+
+// Warps a block and dynamic shared memory of the launch at (m, half);
+// warps is 0 where one matrix does not fit.
+void plan(int m, int half, int n_rounds, long long batch, int* warps_out, size_t* smem_out) {
+  const bool wide = m > kNarrowM;
+  const Layout L = layout(m, half);
+  const size_t table = wide ? 0 : sizeof(int) * 2 * n_rounds * half;
+  const size_t per_warp = sizeof(float) * L.warp_floats;
+  const size_t budget = wide ? kSmemOptin : kSmemDefault;
+  int warps = per_warp + table > budget ? 0 : static_cast<int>((budget - table) / per_warp);
+  warps = warps < kMaxWarps ? warps : kMaxWarps;
+  const long long groups = (batch + L.g - 1) / L.g;
+  if (groups < warps) warps = static_cast<int>(groups);
+  *warps_out = warps;
+  *smem_out = table + per_warp * warps;
 }
 
 }  // namespace
@@ -194,17 +225,22 @@ extern "C" int jacobi_eigh_launch(const void* a, void* vals, void* vecs,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
+  int warps;
+  size_t smem;
+  plan(m, half, n_rounds, batch, &warps, &smem);
+  if (warps < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = layout(m, half);
-  const size_t table = sizeof(int) * 2 * n_rounds * half;
-  const size_t per_warp = sizeof(float) * L.warp_floats;
-  int warps = static_cast<int>((kSmemDefault - table) / per_warp);
-  warps = warps < kMaxWarps ? warps : kMaxWarps;
   const long long groups = (static_cast<long long>(batch) + L.g - 1) / L.g;
-  if (groups < warps) warps = static_cast<int>(groups);
   const long long blocks = (groups + warps - 1) / warps;
-  const size_t smem = table + per_warp * warps;
-  jacobi_eigh_kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  const bool wide = m > kNarrowM;
+  auto kernel = wide ? jacobi_eigh_kernel<true> : jacobi_eigh_kernel<false>;
+  if (smem > kSmemDefault) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<static_cast<unsigned>(blocks), 32 * warps, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<float*>(vals),
       static_cast<float*>(vecs), static_cast<const int*>(pairs), n_rounds,
       half, batch, m, sweeps);

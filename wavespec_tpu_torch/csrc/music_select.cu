@@ -25,10 +25,14 @@
 // the tables), so the j-th greedy pick lies among the top (j-1)*P + 1, and
 // cap = (k-1)*P + 1 makes the k greedy rounds exact over the list alone:
 // each round takes the first unexcluded entry (one ballot) and excludes
-// by the reference's float32 test. When none is left, the reference's
-// argmax of the masked row is its first zero: point 0, or point 1 where
-// point 0 is an unexcluded negative local maximum; that pick still
-// excludes. Warp R streams the band power keeping a sorted top-8 per lane
+// by the reference's float32 test. The list holds at most kMaxList
+// entries; where (k-1)*P + 1 is more, the list may run out while
+// unexcluded maxima remain, and a round that finds every entry excluded
+// in a full list rescans its band for the best positive local maximum
+// that no earlier pick excludes (value desc, index asc). When none is
+// left, the reference's argmax of the masked row is its first zero:
+// point 0, or point 1 where point 0 is an unexcluded negative local
+// maximum; that pick still excludes. Warp R streams the band power keeping a sorted top-8 per lane
 // in registers, then k warp merges give the top-k with first-index ties.
 // No block barrier inside a row pass or a round; one barrier then hands
 // the C = R*k + k candidates in shared memory to warp 0, which dedupes,
@@ -93,9 +97,43 @@ __device__ __forceinline__ void list_insert(WarpList& l, int& cnt, int cap,
   cnt = min(cnt + 1, cap);
 }
 
+// The best (value desc, index asc) positive local maximum of the band
+// that none of the j picks at frequencies fp[0..j) excludes, or value 0.
+__device__ void rescan(const float* __restrict__ row, const int32_t* __restrict__ core,
+                       const float* __restrict__ freqs, int gb, float excl,
+                       const float (&fp)[kMaxTopK], int j, int lane, float& v_out,
+                       int& i_out) {
+  float bv = 0.0f;
+  int bi = INT32_MAX;
+  for (int i = lane; i < gb - 1; i += 32) {
+    const float x = __ldg(row + i);
+    const float left = i > 0 ? __ldg(row + i - 1) : x;
+    const float right = __ldg(row + i + 1);
+    bool take = (__ldg(core + i) != 0) & (x >= left) & (x > right) & (x > bv);
+    if (take) {
+      const float f = __ldg(freqs + i);
+#pragma unroll
+      for (int q = 0; q < kMaxTopK; ++q) take &= (q >= j) | (fabsf(f - fp[q]) > excl);
+    }
+    bv = take ? x : bv;
+    bi = take ? i : bi;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float v2 = __shfl_xor_sync(kFull, bv, o);
+    const int i2 = __shfl_xor_sync(kFull, bi, o);
+    if (better(v2, i2, bv, bi)) {
+      bv = v2;
+      bi = i2;
+    }
+  }
+  v_out = bv;
+  i_out = bi;
+}
+
 // One band: stream it once, keep the top `cap` positive local maxima,
-// then run the k greedy rounds over the list. Lane 0 writes candidate
-// b*k + j of round j.
+// then run the k greedy rounds over the list (rescanning the band once
+// a full list runs out). Lane 0 writes candidate b*k + j of round j.
 __device__ void band_picks(const float* __restrict__ row,
                            const int32_t* __restrict__ core,
                            const float* __restrict__ freqs, int gb, int s0,
@@ -161,6 +199,11 @@ __device__ void band_picks(const float* __restrict__ row,
   const float fb = lane + 32 < cnt ? __ldg(freqs + l.ib) : 0.0f;
   bool out_a = lane >= cnt;  // taken, excluded or empty
   bool out_b = lane + 32 >= cnt;
+  // a full list may have dropped maxima that later rounds need
+  const bool full = cnt == cap;
+  float picked[kMaxTopK];
+#pragma unroll
+  for (int q = 0; q < kMaxTopK; ++q) picked[q] = 0.0f;
   for (int j = 0; j < k; ++j) {
     const unsigned in_a = __ballot_sync(kFull, !out_a);
     const unsigned in_b = __ballot_sync(kFull, !out_b);
@@ -174,8 +217,18 @@ __device__ void band_picks(const float* __restrict__ row,
       const int src = __ffs(in_b) - 1;
       v = __shfl_sync(kFull, l.vb, src);
       idx = __shfl_sync(kFull, l.ib, src);
+    } else if (full) {
+      float rv;
+      int ri;
+      rescan(row, core, freqs, gb, excl, picked, j, lane, rv, ri);
+      if (rv > 0.0f) {
+        v = rv;
+        idx = ri;
+      }
     }
     const float fp = __ldg(freqs + idx);
+#pragma unroll
+    for (int q = 0; q < kMaxTopK; ++q) picked[q] = q == j ? fp : picked[q];
     out_a |= !(fabsf(fa - fp) > excl);
     out_b |= !(fabsf(fb - fp) > excl);
     neg0 &= fabsf(f0 - fp) > excl;

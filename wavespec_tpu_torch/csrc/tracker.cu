@@ -20,12 +20,18 @@
 //
 // Design: one warp per symbol (one block of 32 threads), the frame loop
 // inside the kernel, no warp reduction on the chain. Lane l owns capacity
-// rows l and l + 32 (C <= 64) in registers and publishes what other lanes
-// read into shared memory: compact lists of the rows each phase may take
-// (eligible, fillable, possible leak), built by ballot prefix counts in
-// row order, and the rows' period, power and fft. Frames arrive in chunks
-// of F frames by cp.async into a two-stage ring, so a chunk loads while
-// the one before runs. Each phase keeps the plain version's tie rule:
+// rows l, l + 32, ... (NR rows a lane: 2 for C <= 64, 4 to 128, 8 to
+// 256) in registers, and slots l, l + 32 (NS: 1 for S <= 32, 2 to 64),
+// and publishes what other lanes read into shared memory: compact lists
+// of the rows each phase may take (eligible, fillable, possible leak),
+// built by ballot prefix counts in row order, and the rows' period,
+// power and fft. Frames arrive in chunks of F frames by cp.async into a
+// two-stage ring, so a chunk loads while the one before runs; F falls to
+// one frame as J grows, and where even one frame's candidates do not fit
+// in shared memory (J past ~8,000) the kernel reads them from global
+// memory instead (kStaged false). Only the first NR * 32 unmatched
+// candidates are kept: no more rows can be dead. Each phase keeps the
+// plain version's tie rule:
 // - matching: lane j scans the eligible rows in order, keeping the first
 //   row of least cost (`_first_argmin`; two running minima over
 //   alternate rows, joined by (cost, row)), with the tolerance test
@@ -106,8 +112,7 @@ struct Params {
   int max_inactive, leak_min, leak_max;
 };
 
-// Frames per stage and the dynamic shared memory: the unmatched
-// candidates' list; per stage F * J
+// Frames per stage and the dynamic shared memory: per stage F * J
 // period, power and fft words and the valid bytes as whole words.
 __host__ __device__ inline int frames_per_stage(int J) {
   const int f = kStageBytes / (13 * J);
@@ -117,7 +122,7 @@ __host__ __device__ inline int valid_words(int F, int J) { return (F * J + 7) / 
 __host__ __device__ inline int stage_words(int F, int J) { return 3 * F * J + valid_words(F, J); }
 inline size_t dynamic_smem(int J) {
   const int F = frames_per_stage(J);
-  return (size_t)(J + 2 * stage_words(F, J)) * 4;
+  return (size_t)(2 * stage_words(F, J)) * 4;
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -209,95 +214,150 @@ struct Stage {
   }
 };
 
+// A bit mask over the slots a lane sees: 32 (NS = 1) or 64 (NS = 2).
+template <int NS> struct SlotMask { using T = unsigned; };
+template <> struct SlotMask<2> { using T = unsigned long long; };
+__device__ __forceinline__ int first_bit(unsigned m) { return __ffs(m) - 1; }
+__device__ __forceinline__ int first_bit(unsigned long long m) { return __ffsll(m) - 1; }
+
+// NR capacity rows a lane (row lane + 32 i), NS slots a lane (slot
+// lane + 32 u); kStaged: frames through the shared-memory ring, or read
+// from global memory where one frame's candidates do not fit in it.
+template <int NR, int NS, bool kStaged>
 __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool has_init,
                                                      Outputs out, State fin, Params prm) {
+  constexpr int kRows = 32 * NR, kSlots = 32 * NS;
+  using Mask = typename SlotMask<NS>::T;
   // rows other lanes read, and the compact row lists, in row order
-  __shared__ float r_per[64], r_pw[64];
-  __shared__ int32_t r_fft[64];
-  __shared__ int32_t e_row[64];                   // eligible for matching
-  __shared__ __align__(16) float e_per[68];   // padded with 0 to a multiple of 4
-  __shared__ int4 f_list[64];   // fillable: power bits, uid, row
-  __shared__ int4 l_list[64];   // may leak: period bits, power bits, uid, row
+  __shared__ float r_per[kRows], r_pw[kRows];
+  __shared__ int32_t r_fft[kRows];
+  __shared__ int32_t e_row[kRows];                    // eligible for matching
+  __shared__ __align__(16) float e_per[kRows + 4];   // padded with 0 to a multiple of 4
+  __shared__ int4 f_list[kRows];   // fillable: power bits, uid, row
+  __shared__ int4 l_list[kRows];   // may leak: period bits, power bits, uid, row
   // per row, its least candidate: cost bits << 32 | j (all ones: none)
-  __shared__ unsigned long long r_win[64];
-  // per slot: its uid, the lowest alive row holding it (64: none), and
+  __shared__ unsigned long long r_win[kRows];
+  // the first unmatched candidates: only as many as there are dead rows
+  // are ever taken
+  __shared__ int32_t u_j[kRows];
+  // per slot: its uid, the lowest alive row holding it (kRows: none), and
   // the uid and row that fill it
-  __shared__ int32_t s_su[32], s_row[32], fill_uid[32], fill_row[32];
+  __shared__ int32_t s_su[kSlots], s_row[kSlots], fill_uid[kSlots], fill_row[kSlots];
   extern __shared__ uint32_t smem[];
-  const int J = prm.J, C = prm.C, S = prm.S, T = prm.T, F = prm.F;
+  const int J = prm.J, C = prm.C, S = prm.S, T = prm.T, F = kStaged ? prm.F : T;
   const bool fast = prm.tol >= 1e-3f && prm.tol <= 1e6f;
-  int32_t* u_j = reinterpret_cast<int32_t*>(smem);   // unmatched candidates
-  uint32_t* ring = smem + J;                          // two stages
-  const int ring_step = stage_words(F, J);
+  uint32_t* ring = smem;                              // two stages
+  const int ring_step = kStaged ? stage_words(F, J) : 0;
 
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const unsigned lt = (1u << lane) - 1u;
-  const int r0 = lane, r1 = lane + 32;
-  const bool ex0 = r0 < C, ex1 = r1 < C;
+  int rr[NR];
+  bool ex[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    rr[i] = lane + 32 * i;
+    ex[i] = rr[i] < C;
+  }
 
   // ---- state ----
-  float per0 = 0.f, per1 = 0.f, pw0 = 0.f, pw1 = 0.f;
-  int fi0 = 0, fi1 = 0, bi0 = 0, bi1 = 0, uid0 = 0, uid1 = 0;
-  bool al0 = false, al1 = false, seen0 = false, seen1 = false;
+  float per[NR], pw[NR];
+  int fi[NR], bi[NR], uid[NR];
+  bool al[NR], seen[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    per[i] = 0.f; pw[i] = 0.f; fi[i] = 0; bi[i] = 0; uid[i] = 0;
+    al[i] = false; seen[i] = false;
+  }
   int next_uid = 1;
-  int su = 0, luid = 0, lbars = 0;   // slot `lane` (lane < S)
-  bool lact = false;
+  int su[NS], luid[NS], lbars[NS];   // slot lane + 32 u (< S)
+  bool lact[NS], sl[NS];
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    su[u] = 0; luid[u] = 0; lbars[u] = 0; lact[u] = false;
+    sl[u] = lane + 32 * u < S;
+  }
   if (has_init) {
     const long long c0 = (long long)b * C;
-    if (ex0) {
-      per0 = init.period[c0 + r0]; pw0 = init.power[c0 + r0];
-      fi0 = init.fft[c0 + r0]; al0 = init.alive[c0 + r0] != 0;
-      bi0 = init.bars_inactive[c0 + r0]; uid0 = init.uid[c0 + r0];
-    }
-    if (ex1) {
-      per1 = init.period[c0 + r1]; pw1 = init.power[c0 + r1];
-      fi1 = init.fft[c0 + r1]; al1 = init.alive[c0 + r1] != 0;
-      bi1 = init.bars_inactive[c0 + r1]; uid1 = init.uid[c0 + r1];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      if (ex[i]) {
+        per[i] = init.period[c0 + rr[i]]; pw[i] = init.power[c0 + rr[i]];
+        fi[i] = init.fft[c0 + rr[i]]; al[i] = init.alive[c0 + rr[i]] != 0;
+        bi[i] = init.bars_inactive[c0 + rr[i]]; uid[i] = init.uid[c0 + rr[i]];
+      }
     }
     next_uid = init.next_uid[b];
-    if (lane < S) {
-      const long long s0 = (long long)b * S + lane;
-      su = init.slot_uid[s0]; lact = init.leak_active[s0] != 0;
-      luid = init.leak_uid[s0]; lbars = init.leak_bars[s0];
+#pragma unroll
+    for (int u = 0; u < NS; ++u) {
+      if (sl[u]) {
+        const long long s0 = (long long)b * S + lane + 32 * u;
+        su[u] = init.slot_uid[s0]; lact[u] = init.leak_active[s0] != 0;
+        luid[u] = init.leak_uid[s0]; lbars[u] = init.leak_bars[s0];
+      }
     }
   }
-  s_su[lane] = su;
-  s_row[lane] = 64;
-  r_win[r0] = r_win[r1] = ~0ull;
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    s_su[lane + 32 * u] = su[u];
+    s_row[lane + 32 * u] = kRows;
+  }
+#pragma unroll
+  for (int i = 0; i < NR; ++i) r_win[rr[i]] = ~0ull;
 
   const long long sym0 = (long long)b * T * J;
   const int n_chunks = (T + F - 1) / F;
-  Stage(ring, F, J).load(in, sym0, min(F, T) * J, lane);
-  cp_async_commit();
+  if (kStaged) {
+    Stage(ring, F, J).load(in, sym0, min(F, T) * J, lane);
+    cp_async_commit();
+  }
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int t0 = ch * F, nf = min(F, T - t0);
-    if (ch + 1 < n_chunks) {
-      Stage(ring + ((ch + 1) & 1) * ring_step, F, J)
-          .load(in, sym0 + (long long)(t0 + F) * J, min(F, T - t0 - F) * J, lane);
+    const float* c_per = in.period + sym0 + (long long)t0 * J;
+    const float* c_pw = in.power + sym0 + (long long)t0 * J;
+    const int32_t* c_fft = in.fft + sym0 + (long long)t0 * J;
+    const uint8_t* c_valid = in.valid + sym0 + (long long)t0 * J;
+    if (kStaged) {
+      if (ch + 1 < n_chunks) {
+        Stage(ring + ((ch + 1) & 1) * ring_step, F, J)
+            .load(in, sym0 + (long long)(t0 + F) * J, min(F, T - t0 - F) * J, lane);
+      }
+      cp_async_commit();
+      cp_async_wait_prev();
+      __syncwarp();
+      const Stage stg(ring + (ch & 1) * ring_step, F, J);
+      c_per = stg.per;
+      c_pw = stg.pw;
+      c_fft = stg.fft;
+      c_valid = stg.valid_bytes(in, sym0 + (long long)t0 * J);
     }
-    cp_async_commit();
-    cp_async_wait_prev();
-    __syncwarp();
-    const Stage stg(ring + (ch & 1) * ring_step, F, J);
-    const uint8_t* stg_valid = stg.valid_bytes(in, sym0 + (long long)t0 * J);
 
     for (int f = 0; f < nf; ++f) {
       const int t = t0 + f;
-      const float* cp = stg.per + f * J;
-      const float* cw = stg.pw + f * J;
-      const int32_t* cf = stg.fft + f * J;
-      const uint8_t* cv = stg_valid + f * J;
+      const long long fj = static_cast<long long>(f) * J;
+      const float* cp = c_per + fj;
+      const float* cw = c_pw + fj;
+      const int32_t* cf = c_fft + fj;
+      const uint8_t* cv = c_valid + fj;
 
       // ---- eligible rows, in row order ----
-      const bool e0 = ex0 & al0 & (bi0 == 0), e1 = ex1 & al1 & (bi1 == 0);
-      const unsigned em0 = __ballot_sync(kFull, e0), em1 = __ballot_sync(kFull, e1);
-      const int n_elig = __popc(em0) + __popc(em1);
-      if (e0) { const int k = __popc(em0 & lt); e_row[k] = r0; e_per[k] = per0; }
-      if (e1) { const int k = __popc(em0) + __popc(em1 & lt); e_row[k] = r1; e_per[k] = per1; }
+      bool el[NR];
+      int n_elig = 0;
+      bool rows_ok = true;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        el[i] = ex[i] & al[i] & (bi[i] == 0);
+        const unsigned em = __ballot_sync(kFull, el[i]);
+        if (el[i]) {
+          const int k = n_elig + __popc(em & lt);
+          e_row[k] = rr[i];
+          e_per[k] = per[i];
+        }
+        n_elig += __popc(em);
+        rows_ok &= !el[i] | in_range(per[i]);
+      }
       if (lane < 4) e_per[n_elig + lane] = 0.f;   // costs kBig
-      const bool rows_fast =
-          fast & (__all_sync(kFull, (!e0 | in_range(per0)) & (!e1 | in_range(per1))) != 0);
+      const bool rows_fast = fast & (__all_sync(kFull, rows_ok) != 0);
       __syncwarp();
 
       // ---- each candidate: the first eligible row of least cost; each
@@ -355,157 +415,184 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
         }
         const bool unm = p_ok & !matched;
         const unsigned um = __ballot_sync(kFull, unm);
-        if (unm) u_j[n_unm + __popc(um & lt)] = j;
+        const int pos = n_unm + __popc(um & lt);
+        if (unm & (pos < kRows)) u_j[pos] = j;
         n_unm += __popc(um);
       }
       __syncwarp();
-      const unsigned long long w0 = r_win[r0], w1 = r_win[r1];
-      r_win[r0] = r_win[r1] = ~0ull;
-      const int wj0 = w0 == ~0ull ? -1 : static_cast<int>(w0 & 0xffffffffu);
-      const int wj1 = w1 == ~0ull ? -1 : static_cast<int>(w1 & 0xffffffffu);
-      seen0 = wj0 >= 0;
-      seen1 = wj1 >= 0;
-      if (seen0) { per0 = cp[wj0]; pw0 = cw[wj0]; fi0 = cf[wj0]; }
-      if (seen1) { per1 = cp[wj1]; pw1 = cw[wj1]; fi1 = cf[wj1]; }
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const unsigned long long w = r_win[rr[i]];
+        r_win[rr[i]] = ~0ull;
+        const int wj = w == ~0ull ? -1 : static_cast<int>(w & 0xffffffffu);
+        seen[i] = wj >= 0;
+        if (seen[i]) { per[i] = cp[wj]; pw[i] = cw[wj]; fi[i] = cf[wj]; }
+      }
 
       // ---- the nth unmatched candidate takes the nth dead row ----
-      const bool dead0 = ex0 & !al0, dead1 = ex1 & !al1;
-      const unsigned dm0 = __ballot_sync(kFull, dead0);
-      const unsigned dm1 = __ballot_sync(kFull, dead1);
-      const int rank0 = __popc(dm0 & lt);
-      const int rank1 = __popc(dm0) + __popc(dm1 & lt);
-      if (dead0 & (rank0 < n_unm)) {
-        const int jj = u_j[rank0];
-        per0 = cp[jj]; pw0 = cw[jj]; fi0 = cf[jj];
-        uid0 = next_uid + rank0; seen0 = true; al0 = true;
+      int n_dead = 0;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const bool dead = ex[i] & !al[i];
+        const unsigned dm = __ballot_sync(kFull, dead);
+        const int rank = n_dead + __popc(dm & lt);
+        if (dead & (rank < n_unm)) {
+          const int jj = u_j[rank];
+          per[i] = cp[jj]; pw[i] = cw[jj]; fi[i] = cf[jj];
+          uid[i] = next_uid + rank; seen[i] = true; al[i] = true;
+        }
+        n_dead += __popc(dm);
       }
-      if (dead1 & (rank1 < n_unm)) {
-        const int jj = u_j[rank1];
-        per1 = cp[jj]; pw1 = cw[jj]; fi1 = cf[jj];
-        uid1 = next_uid + rank1; seen1 = true; al1 = true;
-      }
-      next_uid += min(__popc(dm0) + __popc(dm1), n_unm);
+      next_uid += min(n_dead, n_unm);
 
       // ---- deactivate unseen; kill after max_inactive ----
-      bi0 = seen0 ? 0 : bi0 + 1;
-      bi1 = seen1 ? 0 : bi1 + 1;
-      if (al0 & !seen0 & (bi0 >= prm.max_inactive)) al0 = false;
-      if (al1 & !seen1 & (bi1 >= prm.max_inactive)) al1 = false;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        bi[i] = seen[i] ? 0 : bi[i] + 1;
+        if (al[i] & !seen[i] & (bi[i] >= prm.max_inactive)) al[i] = false;
+      }
 
       // publish the rows, and the rows that may leak, in row order
-      if (ex0) { r_per[r0] = per0; r_pw[r0] = pw0; r_fft[r0] = fi0; }
-      if (ex1) { r_per[r1] = per1; r_pw[r1] = pw1; r_fft[r1] = fi1; }
-      const bool lk0 = ex0 & al0 & seen0 & (bi0 <= prm.leak_min);
-      const bool lk1 = ex1 & al1 & seen1 & (bi1 <= prm.leak_min);
-      const unsigned lm0 = __ballot_sync(kFull, lk0), lm1 = __ballot_sync(kFull, lk1);
-      const int n_leak = __popc(lm0) + __popc(lm1);
-      if (lk0) {
-        l_list[__popc(lm0 & lt)] = make_int4(__float_as_int(per0), __float_as_int(pw0), uid0, r0);
-      }
-      if (lk1) {
-        l_list[__popc(lm0) + __popc(lm1 & lt)] =
-            make_int4(__float_as_int(per1), __float_as_int(pw1), uid1, r1);
+      int n_leak = 0;
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        if (ex[i]) { r_per[rr[i]] = per[i]; r_pw[rr[i]] = pw[i]; r_fft[rr[i]] = fi[i]; }
+        const bool lk = ex[i] & al[i] & seen[i] & (bi[i] <= prm.leak_min);
+        const unsigned lm = __ballot_sync(kFull, lk);
+        if (lk) {
+          l_list[n_leak + __popc(lm & lt)] =
+              make_int4(__float_as_int(per[i]), __float_as_int(pw[i]), uid[i], rr[i]);
+        }
+        n_leak += __popc(lm);
       }
 
       // ---- stable slots: keep by uid while alive (lowest row) ----
-      const bool live0 = ex0 & al0, live1 = ex1 & al1;
-      unsigned km0 = 0, km1 = 0;   // the slots holding the row's uid
+      bool live[NR], used[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        live[i] = ex[i] & al[i];
+        Mask km = 0;   // the slots holding the row's uid
 #pragma unroll 4
-      for (int s = 0; s < S; ++s) {
-        const int sus = s_su[s];
-        km0 |= (live0 & (sus > 0) & (uid0 == sus)) ? 1u << s : 0u;
-        km1 |= (live1 & (sus > 0) & (uid1 == sus)) ? 1u << s : 0u;
+        for (int s = 0; s < S; ++s) {
+          const int sus = s_su[s];
+          km |= (live[i] & (sus > 0) & (uid[i] == sus)) ? Mask(1) << s : Mask(0);
+        }
+        used[i] = km != 0;
+        for (Mask m = km; m; m &= m - 1) atomicMin(&s_row[first_bit(m)], rr[i]);
       }
-      const bool used0 = km0 != 0, used1 = km1 != 0;
-      for (unsigned m = km0; m; m &= m - 1) atomicMin(&s_row[__ffs(m) - 1], r0);
-      for (unsigned m = km1; m; m &= m - 1) atomicMin(&s_row[__ffs(m) - 1], r1);
       __syncwarp();
-      int my_row = s_row[lane];
-      s_row[lane] = 64;
-      my_row = my_row < 64 ? my_row : -1;
-      const bool is_free = (lane < S) & (my_row < 0);
-      if (is_free) su = 0;
+      int my_row[NS];
+      bool is_free[NS];
+      unsigned free_m[NS];
+      int n_free = 0;
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        my_row[u] = s_row[lane + 32 * u];
+        s_row[lane + 32 * u] = kRows;
+        my_row[u] = my_row[u] < kRows ? my_row[u] : -1;
+        is_free[u] = sl[u] & (my_row[u] < 0);
+        if (is_free[u]) su[u] = 0;
+        free_m[u] = __ballot_sync(kFull, is_free[u]);
+        n_free += __popc(free_m[u]);
+      }
 
       // ---- fill free slots by rank (power desc, uid asc, row asc) ----
-      const unsigned free_m = __ballot_sync(kFull, is_free);
-      if (free_m) {
-        const int n_free = __popc(free_m);
-        const bool fl0 = live0 & !used0 & (pw0 > 0.f);
-        const bool fl1 = live1 & !used1 & (pw1 > 0.f);
-        const unsigned fm0 = __ballot_sync(kFull, fl0), fm1 = __ballot_sync(kFull, fl1);
-        const int n_fill = __popc(fm0) + __popc(fm1);
-        if (fl0) f_list[__popc(fm0 & lt)] = make_int4(__float_as_int(pw0), uid0, r0, 0);
-        if (fl1) f_list[__popc(fm0) + __popc(fm1 & lt)] = make_int4(__float_as_int(pw1), uid1, r1, 0);
+      if (n_free) {
+        bool fl[NR];
+        int n_fill = 0;
+        bool any_fl = false;
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          fl[i] = live[i] & !used[i] & (pw[i] > 0.f);
+          const unsigned fm = __ballot_sync(kFull, fl[i]);
+          if (fl[i]) f_list[n_fill + __popc(fm & lt)] = make_int4(__float_as_int(pw[i]), uid[i], rr[i], 0);
+          n_fill += __popc(fm);
+          any_fl |= fl[i];
+        }
         __syncwarp();
-        if (fl0 | fl1) {
-          int ahead0 = 0, ahead1 = 0;
+        if (any_fl) {
+          int ahead[NR];
+#pragma unroll
+          for (int i = 0; i < NR; ++i) ahead[i] = 0;
 #pragma unroll 4
           for (int k = 0; k < n_fill; ++k) {
             const int4 e = f_list[k];
             const float p = __int_as_float(e.x);
-            const int u = e.y, row = e.z;
-            ahead0 += (p > pw0) | ((p == pw0) & ((u < uid0) | ((u == uid0) & (row < r0))));
-            ahead1 += (p > pw1) | ((p == pw1) & ((u < uid1) | ((u == uid1) & (row < r1))));
+            const int uu = e.y, row = e.z;
+#pragma unroll
+            for (int i = 0; i < NR; ++i) {
+              ahead[i] += (p > pw[i]) | ((p == pw[i]) & ((uu < uid[i]) | ((uu == uid[i]) & (row < rr[i]))));
+            }
           }
-          if (fl0 & (ahead0 < n_free)) { fill_uid[ahead0] = uid0; fill_row[ahead0] = r0; }
-          if (fl1 & (ahead1 < n_free)) { fill_uid[ahead1] = uid1; fill_row[ahead1] = r1; }
+#pragma unroll
+          for (int i = 0; i < NR; ++i) {
+            if (fl[i] & (ahead[i] < n_free)) { fill_uid[ahead[i]] = uid[i]; fill_row[ahead[i]] = rr[i]; }
+          }
         }
         __syncwarp();
-        const int fr = __popc(free_m & lt);
-        if (is_free & (fr < n_fill)) { su = fill_uid[fr]; my_row = fill_row[fr]; }
+        int before = 0;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          const int fr = before + __popc(free_m[u] & lt);
+          if (is_free[u] & (fr < n_fill)) { su[u] = fill_uid[fr]; my_row[u] = fill_row[fr]; }
+          before += __popc(free_m[u]);
+        }
       }
       __syncwarp();
 
-      const bool sv = (lane < S) & (su > 0);
-      const float slot_p = sv ? r_per[my_row] : 0.f;
-      const float slot_pw = sv ? r_pw[my_row] : 0.f;
-      const int slot_fi = sv ? r_fft[my_row] : 0;
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        const bool sv = sl[u] & (su[u] > 0);
+        const float slot_p = sv ? r_per[my_row[u]] : 0.f;
+        const float slot_pw = sv ? r_pw[my_row[u]] : 0.f;
+        const int slot_fi = sv ? r_fft[my_row[u]] : 0;
 
-      // ---- leakage: per slot the strongest intruder (smallest uid) ----
-      // four scans, of the list entries 4m + i, each keeping the first
-      // row of the largest (power, -uid); then the largest of the four in
-      // (power, -uid, -row)
-      Leak acc[4];
-      if (sv) {
-        const float p_lim = slot_p * prm.leak_pr, w_lim = slot_pw * prm.leak_wr;
-        int k = 0;
-        for (; k + 4 <= n_leak; k += 4) {
-          const int4 e0 = l_list[k], e1 = l_list[k + 1], e2 = l_list[k + 2], e3 = l_list[k + 3];
-          acc[0].scan(e0, p_lim, w_lim, su);
-          acc[1].scan(e1, p_lim, w_lim, su);
-          acc[2].scan(e2, p_lim, w_lim, su);
-          acc[3].scan(e3, p_lim, w_lim, su);
+        // ---- leakage: per slot the strongest intruder (smallest uid) ----
+        // four scans, of the list entries 4m + i, each keeping the first
+        // row of the largest (power, -uid); then the largest of the four in
+        // (power, -uid, -row)
+        Leak acc[4];
+        if (sv) {
+          const float p_lim = slot_p * prm.leak_pr, w_lim = slot_pw * prm.leak_wr;
+          int k = 0;
+          for (; k + 4 <= n_leak; k += 4) {
+            const int4 e0 = l_list[k], e1 = l_list[k + 1], e2 = l_list[k + 2], e3 = l_list[k + 3];
+            acc[0].scan(e0, p_lim, w_lim, su[u]);
+            acc[1].scan(e1, p_lim, w_lim, su[u]);
+            acc[2].scan(e2, p_lim, w_lim, su[u]);
+            acc[3].scan(e3, p_lim, w_lim, su[u]);
+          }
+          for (; k < n_leak; ++k) acc[0].scan(l_list[k], p_lim, w_lim, su[u]);
+          acc[0].merge(acc[1]);
+          acc[2].merge(acc[3]);
+          acc[0].merge(acc[2]);
         }
-        for (; k < n_leak; ++k) acc[0].scan(l_list[k], p_lim, w_lim, su);
-        acc[0].merge(acc[1]);
-        acc[2].merge(acc[3]);
-        acc[0].merge(acc[2]);
-      }
-      const float best = acc[0].power;
-      const int best_uid = acc[0].uid, best_row = acc[0].row;
-      const bool found = best > 0.f;
-      if (lane < S) {
-        int bars = lact ? lbars + 1 : 0;
-        const bool was = lact & !(bars > prm.leak_max);
-        const bool same = was & found & (luid == best_uid);
-        lbars = same ? bars : (found ? 1 : 0);
-        lact = found;
-        luid = found ? best_uid : 0;
+        const float best = acc[0].power;
+        const int best_uid = acc[0].uid, best_row = acc[0].row;
+        const bool found = best > 0.f;
+        if (sl[u]) {
+          int bars = lact[u] ? lbars[u] + 1 : 0;
+          const bool was = lact[u] & !(bars > prm.leak_max);
+          const bool same = was & found & (luid[u] == best_uid);
+          lbars[u] = same ? bars : (found ? 1 : 0);
+          lact[u] = found;
+          luid[u] = found ? best_uid : 0;
 
-        const long long o = ((long long)b * T + t) * S + lane;
-        out.slot_period[o] = slot_p;
-        out.slot_power[o] = slot_pw;
-        out.slot_fft[o] = slot_fi;
-        out.slot_valid[o] = sv;
-        out.slot_uid[o] = su;
-        out.leak_active[o] = found;
-        out.leak_uid[o] = luid;
-        const int lrow = found ? best_row : 0;
-        out.leak_period[o] = found ? r_per[lrow] : 0.f;
-        out.leak_power[o] = found ? r_pw[lrow] : 0.f;
-        out.leak_fft[o] = found ? r_fft[lrow] : 0;
-        out.leak_bars[o] = found ? lbars : 0;
-        s_su[lane] = su;
+          const long long o = ((long long)b * T + t) * S + lane + 32 * u;
+          out.slot_period[o] = slot_p;
+          out.slot_power[o] = slot_pw;
+          out.slot_fft[o] = slot_fi;
+          out.slot_valid[o] = sv;
+          out.slot_uid[o] = su[u];
+          out.leak_active[o] = found;
+          out.leak_uid[o] = luid[u];
+          const int lrow = found ? best_row : 0;
+          out.leak_period[o] = found ? r_per[lrow] : 0.f;
+          out.leak_power[o] = found ? r_pw[lrow] : 0.f;
+          out.leak_fft[o] = found ? r_fft[lrow] : 0;
+          out.leak_bars[o] = found ? lbars[u] : 0;
+          s_su[lane + 32 * u] = su[u];
+        }
       }
       __syncwarp();
     }
@@ -513,21 +600,23 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
 
   // ---- final state ----
   const long long c0 = (long long)b * C;
-  if (ex0) {
-    fin.period[c0 + r0] = per0; fin.power[c0 + r0] = pw0; fin.fft[c0 + r0] = fi0;
-    fin.alive[c0 + r0] = al0; fin.seen[c0 + r0] = seen0;
-    fin.bars_inactive[c0 + r0] = bi0; fin.uid[c0 + r0] = uid0;
-  }
-  if (ex1) {
-    fin.period[c0 + r1] = per1; fin.power[c0 + r1] = pw1; fin.fft[c0 + r1] = fi1;
-    fin.alive[c0 + r1] = al1; fin.seen[c0 + r1] = seen1;
-    fin.bars_inactive[c0 + r1] = bi1; fin.uid[c0 + r1] = uid1;
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    if (ex[i]) {
+      const long long o = c0 + rr[i];
+      fin.period[o] = per[i]; fin.power[o] = pw[i]; fin.fft[o] = fi[i];
+      fin.alive[o] = al[i]; fin.seen[o] = seen[i];
+      fin.bars_inactive[o] = bi[i]; fin.uid[o] = uid[i];
+    }
   }
   if (lane == 0) fin.next_uid[b] = next_uid;
-  if (lane < S) {
-    const long long s0 = (long long)b * S + lane;
-    fin.slot_uid[s0] = su; fin.leak_active[s0] = lact;
-    fin.leak_uid[s0] = luid; fin.leak_bars[s0] = lbars;
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    if (sl[u]) {
+      const long long s0 = (long long)b * S + lane + 32 * u;
+      fin.slot_uid[s0] = su[u]; fin.leak_active[s0] = lact[u];
+      fin.leak_uid[s0] = luid[u]; fin.leak_bars[s0] = lbars[u];
+    }
   }
 }
 
@@ -540,7 +629,41 @@ State state_from(void* const* p) {
                static_cast<int32_t*>(p[10]), static_cast<int32_t*>(p[11])};
 }
 
+template <int NR, int NS, bool kStaged>
+int launch(const Inputs& ins, const State& st0, bool has_init, const Outputs& o,
+           const State& fin, const Params& prm, int B, size_t smem, cudaStream_t stream) {
+  auto kernel = tracker_kernel<NR, NS, kStaged>;
+  // the dynamic size, with the static arrays, may pass the default 48 KB
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<B, 32, smem, stream>>>(ins, st0, has_init, o, fin, prm);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NR, int NS>
+int launch_staged(bool staged, const Inputs& ins, const State& st0, bool has_init,
+                  const Outputs& o, const State& fin, const Params& prm, int B,
+                  size_t smem, cudaStream_t stream) {
+  return staged ? launch<NR, NS, true>(ins, st0, has_init, o, fin, prm, B, smem, stream)
+                : launch<NR, NS, false>(ins, st0, has_init, o, fin, prm, B, 0, stream);
+}
+
 }  // namespace
+
+// Rows a lane for capacity C (2, 4 or 8; 0 past 256), slots a lane for
+// S (1 or 2; 0 past 64), and whether a stage of frames (at least one)
+// fits in `smem_optin` bytes of dynamic shared memory next to the static
+// arrays, with its size.
+extern "C" void tracker_plan(int J, int C, int S, int smem_optin, int* nr, int* ns,
+                             int* staged, long long* smem) {
+  *nr = C <= 64 ? 2 : (C <= 128 ? 4 : (C <= 256 ? 8 : 0));
+  *ns = S <= 32 ? 1 : (S <= 64 ? 2 : 0);
+  // static arrays: 16 words a row (8 words, two int4) and 4 words a slot
+  const long long fixed = 4LL * (16 * 32 * *nr + 4) + 16LL * 32 * *ns;
+  *smem = static_cast<long long>(dynamic_smem(J));
+  *staged = fixed + *smem <= smem_optin;
+}
 
 // in: 4 pointers (period, power, fft, valid). init: 12 pointers in
 // TrackerState order (seen_now unused), or null for a fresh start.
@@ -552,15 +675,15 @@ extern "C" int tracker_launch(void* const* in, void* const* init,
                               int T, int J, int C, int S, float tol,
                               int max_inactive, float leak_pr, float leak_wr,
                               int leak_min, int leak_max, void* stream) {
-  if (C < 1 || C > 64 || S < 1 || S > 32 || J < 1 || T < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (C < 1 || S < 1 || J < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int nr, ns, staged;
+  long long smem;
+  tracker_plan(J, C, S, optin, &nr, &ns, &staged, &smem);
+  if (nr == 0 || ns == 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  const size_t smem = dynamic_smem(J);
-  // the dynamic size, with the static arrays, may pass the default 48 KB
-  const cudaError_t err = cudaFuncSetAttribute(
-      tracker_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   Inputs ins{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
              static_cast<const int32_t*>(in[2]), static_cast<const uint8_t*>(in[3])};
   State st0 = init ? state_from(init) : State{};
@@ -572,7 +695,16 @@ extern "C" int tracker_launch(void* const* in, void* const* init,
             static_cast<int32_t*>(out[10])};
   Params prm{T, J, C, S, frames_per_stage(J), tol, leak_pr, leak_wr,
              max_inactive, leak_min, leak_max};
-  tracker_kernel<<<B, 32, smem, static_cast<cudaStream_t>(stream)>>>(
-      ins, st0, init != nullptr, o, state_from(fin), prm);
-  return static_cast<int>(cudaGetLastError());
+  const State fn = state_from(fin);
+  const bool hi = init != nullptr;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t sm = static_cast<size_t>(smem);
+  switch (nr * 10 + ns) {
+    case 21: return launch_staged<2, 1>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 22: return launch_staged<2, 2>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 41: return launch_staged<4, 1>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 42: return launch_staged<4, 2>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 81: return launch_staged<8, 1>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+    default: return launch_staged<8, 2>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+  }
 }

@@ -23,8 +23,8 @@
 // inputs (newest, period, valid, gd) arrive by cp.async into a two-stage
 // ring while the chunk before runs. Each chunk is six passes that
 // alternate parallel work over its (frame, slot) pairs with short walks
-// over its frames (lane s < S walks slot s), each term by the same
-// expression as before, so with the same bits:
+// over its frames (lane l walks slots l and, past S = 32, l + 32), each
+// term by the same expression as before, so with the same bits:
 // 1. both warps: the biquad coefficients of each frame's period;
 // 2. walk: the biquad recurrence, the cycle values;
 // 3. pairs: the ETA that needs no machine state (PHASE: the angle to the
@@ -38,7 +38,8 @@
 // Warp 1 walks the per-symbol Kalman step over the chunk's prices during
 // passes 2-6. Each walk fetches the next frame's inputs before the
 // frame's stores, and conditions on the walks are bitwise, not
-// short-circuit (no branches). Lanes >= S behave as inactive slots.
+// short-circuit (no branches). Slots >= S behave as inactive slots.
+// FollowFirst's ballots run once per slot a lane, the lower slots first.
 // Transcendentals are the CUDA math library's sinf/cosf/expf/sqrtf (no
 // fast-math), divisions are IEEE, and the file must be compiled with
 // --fmad=false, so that each step rounds as the plain PyTorch ops do.
@@ -58,6 +59,7 @@ constexpr int kImax = 2147483647;
 constexpr int kThreads = 64;            // warp 0: slots; warp 1: Kalman
 constexpr int kMaxFrames = 32;          // frames a chunk holds at most
 constexpr int kChunkBytes = 40 * 1024;  // two stages and the work arrays
+constexpr int kMaxSlots = 64;           // two slots a lane
 
 struct TailIn {
   const float* __restrict__ newest;      // [B, T]
@@ -282,11 +284,14 @@ struct Kalman {
   }
 };
 
+// NS slots a lane: lane l of warp 0 walks slots l, l + 32, ... (< S).
+template <int NS>
 __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
     TailIn in, TailState init, bool has_init, TailOut out, TailState fin, TailParams prm,
     int F) {
+  constexpr int kPct = 32 * NS + 1;   // FollowFirst's percentage table side
   extern __shared__ uint32_t smem[];
-  __shared__ float pct_tab[33 * 33];   // 100 * n / max(active, 1) at [active][n]
+  __shared__ float pct_tab[kPct * kPct];   // 100 * n / max(active, 1) at [active][n]
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -296,19 +301,32 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
   const Work w(smem + cap * S, F * S);
   uint32_t* stages = smem + cap * S + 8 * F * S;
   const int stage_step = stage_words(F, S);
-  const bool slot = walker && lane < S;
-  const long long bs = (long long)b * S + lane;
+  bool slot[NS];
+  long long bs[NS];
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    slot[u] = walker && lane + 32 * u < S;
+    bs[u] = (long long)b * S + lane + 32 * u;
+  }
   float atan_c[9];   // in registers: the parameter block is not addressable
   for (int k = 0; k < 9; ++k) atan_c[k] = prm.atan[k];
-  for (int k = tid; k < 33 * 33; k += kThreads) {
-    pct_tab[k] = 100.0f * static_cast<float>(k % 33) / static_cast<float>(max(k / 33, 1));
+  for (int k = tid; k < kPct * kPct; k += kThreads) {
+    pct_tab[k] = 100.0f * static_cast<float>(k % kPct) / static_cast<float>(max(k / kPct, 1));
   }
 
-  // ---- state ----
-  float y1 = 0.f, y2 = 0.f, vprev = 0.f, colorp = 0.f, lasteta = 0.f;
-  float est0 = 0.f, est1 = 0.f, stp = 0.f, etp = 0.f;
-  int bars = prm.prior_bars, lastdir = 0, lastbar = -1;
-  int bull[5] = {0, 0, 0, 0, 0}, bear[5] = {0, 0, 0, 0, 0};
+  // ---- state, per slot a lane walks ----
+  float y1[NS], y2[NS], vprev[NS], colorp[NS], lasteta[NS];
+  float est0[NS], est1[NS], stp[NS], etp[NS];
+  int bars[NS], lastdir[NS], lastbar[NS];
+  int bull[NS][5], bear[NS][5];
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    y1[u] = 0.f; y2[u] = 0.f; vprev[u] = 0.f; colorp[u] = 0.f; lasteta[u] = 0.f;
+    est0[u] = 0.f; est1[u] = 0.f; stp[u] = 0.f; etp[u] = 0.f;
+    bars[u] = prm.prior_bars; lastdir[u] = 0; lastbar[u] = -1;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) { bull[u][j] = 0; bear[u][j] = 0; }
+  }
   float xh0 = in.price_prev[2 * b], xh1 = in.price_prev[2 * b + 1];
   int position = -1, mode = 0, tpos = 0;
   Kalman kf;
@@ -316,21 +334,29 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
   for (int k = 0; k < 16; ++k) kf.kp[k] = 0.f;
   kf.ema = 0.f;
   kf.ready = 0.f;
-  if (slot) {
-    for (int r = 0; r < cap; ++r) ring[r * S + lane] = 0.f;
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    const int sl = lane + 32 * u;
+    if (slot[u]) {
+      for (int r = 0; r < cap; ++r) ring[r * S + sl] = 0.f;
+    }
   }
   if (has_init) {
-    if (slot) {
-      y1 = init.y1[bs]; y2 = init.y2[bs]; vprev = init.vprev[bs];
-      colorp = init.colorp[bs]; lasteta = init.lasteta[bs];
-      est0 = init.est[(2LL * b) * S + lane]; est1 = init.est[(2LL * b + 1) * S + lane];
-      stp = init.stp[bs]; etp = init.etp[bs]; bars = init.bars[bs];
-      lastdir = init.lastdir[bs]; lastbar = init.lastbar[bs];
-      for (int j = 0; j < 5; ++j) {
-        bull[j] = init.bull[(5LL * b + j) * S + lane];
-        bear[j] = init.bear[(5LL * b + j) * S + lane];
+#pragma unroll
+    for (int u = 0; u < NS; ++u) {
+      const int sl = lane + 32 * u;
+      if (slot[u]) {
+        y1[u] = init.y1[bs[u]]; y2[u] = init.y2[bs[u]]; vprev[u] = init.vprev[bs[u]];
+        colorp[u] = init.colorp[bs[u]]; lasteta[u] = init.lasteta[bs[u]];
+        est0[u] = init.est[(2LL * b) * S + sl]; est1[u] = init.est[(2LL * b + 1) * S + sl];
+        stp[u] = init.stp[bs[u]]; etp[u] = init.etp[bs[u]]; bars[u] = init.bars[bs[u]];
+        lastdir[u] = init.lastdir[bs[u]]; lastbar[u] = init.lastbar[bs[u]];
+        for (int j = 0; j < 5; ++j) {
+          bull[u][j] = init.bull[(5LL * b + j) * S + sl];
+          bear[u][j] = init.bear[(5LL * b + j) * S + sl];
+        }
+        for (int r = 0; r < cap; ++r) ring[r * S + sl] = init.ring[((long long)b * cap + r) * S + sl];
       }
-      for (int r = 0; r < cap; ++r) ring[r * S + lane] = init.ring[((long long)b * cap + r) * S + lane];
     }
     xh0 = init.xh[2 * b]; xh1 = init.xh[2 * b + 1];
     position = init.posmode[2 * b]; mode = init.posmode[2 * b + 1];
@@ -382,29 +408,43 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
       // ---- 2. lane s: the biquad recurrence ----
       // (each walk fetches the next frame's inputs before this frame's
       // stores, which the compiler cannot move them past)
-      float b0n = 0.f, b2n = 0.f, a1n = 0.f, a2n = 0.f;
-      bool liven = false;
+      float b0n[NS], b2n[NS], a1n[NS], a2n[NS];
+      bool liven[NS];
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        b0n[u] = 0.f; b2n[u] = 0.f; a1n[u] = 0.f; a2n[u] = 0.f; liven[u] = false;
+      }
       auto fetch_biquad = [&](int f) {
-        if (slot) {
-          const int idx = f * S + lane;
-          liven = (stg_valid[idx] != 0) & (stg.period[idx] > 0.f);
-          b0n = w.b0[idx]; b2n = w.b2[idx]; a1n = w.a1[idx]; a2n = w.a2[idx];
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          if (slot[u]) {
+            const int idx = f * S + lane + 32 * u;
+            liven[u] = (stg_valid[idx] != 0) & (stg.period[idx] > 0.f);
+            b0n[u] = w.b0[idx]; b2n[u] = w.b2[idx]; a1n[u] = w.a1[idx]; a2n[u] = w.a2[idx];
+          }
         }
       };
       fetch_biquad(0);
       for (int f = 0; f < nf; ++f) {
         const float x = stg.newest[f];
-        const bool live = liven;
-        const float b0 = b0n, b2 = b2n, a1 = a1n, a2 = a2n;
-        if (f + 1 < nf) fetch_biquad(f + 1);
-        const float u = live ? b0 * x + b2 * xh0 : 0.f;
-        const float v = live ? u - a1 * y1 - a2 * y2 : 0.f;
-        if (slot) {
-          w.v[f * S + lane] = v;
-          out.cyc[(x_sym + i0 + f) * S + lane] = v;
+        bool live[NS];
+        float b0[NS], b2[NS], a1[NS], a2[NS];
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          live[u] = liven[u]; b0[u] = b0n[u]; b2[u] = b2n[u]; a1[u] = a1n[u]; a2[u] = a2n[u];
         }
-        y2 = y1;
-        y1 = v;
+        if (f + 1 < nf) fetch_biquad(f + 1);
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          const float uu = live[u] ? b0[u] * x + b2[u] * xh0 : 0.f;
+          const float v = live[u] ? uu - a1[u] * y1[u] - a2[u] * y2[u] : 0.f;
+          if (slot[u]) {
+            w.v[f * S + lane + 32 * u] = v;
+            out.cyc[(x_sym + i0 + f) * S + lane + 32 * u] = v;
+          }
+          y2[u] = y1[u];
+          y1[u] = v;
+        }
         xh0 = xh1;
         xh1 = x;
       }
@@ -441,102 +481,118 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
       __syncwarp();
 
       // ---- 4. lane s: the ETA / color machine ----
-      float vn = 0.f, periodn = 0.f, gdn = 0.f, etan = 0.f;
-      bool okn = false;
+      float vn[NS], periodn[NS], gdn[NS], etan[NS];
+      bool okn[NS];
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        vn[u] = 0.f; periodn[u] = 0.f; gdn[u] = 0.f; etan[u] = 0.f; okn[u] = false;
+      }
       auto fetch_machine = [&](int f) {
-        if (slot) {
-          const int idx = f * S + lane;
-          vn = w.v[idx]; periodn = stg.period[idx]; gdn = stg.gd[idx];
-          okn = stg_valid[idx] != 0;
-          if (prm.eta_mode != 2) etan = w.eta0[idx];
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          if (slot[u]) {
+            const int idx = f * S + lane + 32 * u;
+            vn[u] = w.v[idx]; periodn[u] = stg.period[idx]; gdn[u] = stg.gd[idx];
+            okn[u] = stg_valid[idx] != 0;
+            if (prm.eta_mode != 2) etan[u] = w.eta0[idx];
+          }
         }
       };
       fetch_machine(0);
       for (int f = 0; f < nf; ++f) {
         const bool first = !has_init & (i0 + f == 0);
-        const int idx = f * S + lane;
-        const float v = vn, period = periodn, gd = gdn;
-        float eta = etan;
-        const bool ok = okn;
+        float vv[NS], pp[NS], gg[NS], ee[NS];
+        bool oo[NS];
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          vv[u] = vn[u]; pp[u] = periodn[u]; gg[u] = gdn[u]; ee[u] = etan[u]; oo[u] = okn[u];
+        }
         if (f + 1 < nf) fetch_machine(f + 1);
-        const bool bullish = first ? (v >= 0.f) : (v >= vprev);
-        const float color = (ok & bullish) ? 1.f : 0.f;
-        const bool flipped = color != colorp;
-        bool changed;
-        int bars_now;
-        if (prm.prior_bars > 0) {
-          changed = flipped & ok;
-          bars_now = flipped ? 1 : bars + 1;
-        } else {
-          changed = flipped & ok & !first;
-          bars_now = (first | flipped) ? 1 : bars + 1;
-        }
-        const float bars_f = static_cast<float>(bars_now);
-        if (prm.eta_mode == 2) {
-          int hs[5], ho[5];
-          for (int j = 0; j < 5; ++j) {
-            hs[j] = bullish ? bull[j] : bear[j];
-            ho[j] = bullish ? bear[j] : bull[j];
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          const int idx = f * S + lane + 32 * u;
+          const float v = vv[u], period = pp[u], gd = gg[u];
+          float eta = ee[u];
+          const bool ok = oo[u];
+          const bool bullish = first ? (v >= 0.f) : (v >= vprev[u]);
+          const float color = (ok & bullish) ? 1.f : 0.f;
+          const bool flipped = color != colorp[u];
+          bool changed;
+          int bars_now;
+          if (prm.prior_bars > 0) {
+            changed = flipped & ok;
+            bars_now = flipped ? 1 : bars[u] + 1;
+          } else {
+            changed = flipped & ok & !first;
+            bars_now = (first | flipped) ? 1 : bars[u] + 1;
           }
-          const float med_same = static_cast<float>(median5(hs));
-          const float med_opp = static_cast<float>(median5(ho));
-          float e = bullish ? est0 : est1;
-          if (e <= 0.f) e = med_same;
-          if (e <= 0.f) e = med_opp;
-          if (e <= 0.f && period > 0.f) e = period;
-          if (e <= 0.f) e = fmaxf(bars_f, 1.0f);
-          if (period > 0.f && e > 2.0f * period) e = 2.0f * period;
-          const float tsec = fmaxf(fmaxf(e, bars_f), 1.0f) * prm.spb;
-          const float esec = bars_f * prm.spb;
-          const float prog = tsec > 0.f ? fminf(esec / tsec, 1.0f) : 0.f;
-          const float base = (1.0f - clampf(prog, 0.f, 1.f)) * tsec;
-          const float max_adj = tsec * 0.25f;
-          const float gd_sec = clampf(gd * prm.spb, -max_adj, max_adj);
-          float sci = clampf(base + 0.25f * gd_sec, 0.f, tsec * 1.5f);
-          sci = tsec > 0.f ? sci : 0.f;
-          const float e_struct = fmaxf(tsec - esec, 0.f);
-          const float e_hist = fmaxf(med_same * prm.spb - esec, 0.f);
-          const float w_struct = tsec > 0.f ? 0.5f : 0.f;
-          const float w_hist = med_same > 0.f ? 0.35f : 0.f;
-          const float w_sci = sci > 0.f ? 0.15f : 0.f;
-          const float wsum = w_struct + w_hist + w_sci;
-          const float blend = (e_struct * w_struct + e_hist * w_hist + sci * w_sci) / fmaxf(wsum, 1e-9f);
-          const float hyb = wsum > 0.f ? blend : e_struct;
-          float max_ref = fmaxf(fmaxf(tsec, med_same * prm.spb), period * prm.spb);
-          max_ref = max_ref <= 0.f ? prm.spb : max_ref;
-          eta = clampf(hyb, 0.f, 1.5f * max_ref);
-        }
-        eta = period > 0.f ? eta : 0.f;
+          const float bars_f = static_cast<float>(bars_now);
+          if (prm.eta_mode == 2) {
+            int hs[5], ho[5];
+            for (int j = 0; j < 5; ++j) {
+              hs[j] = bullish ? bull[u][j] : bear[u][j];
+              ho[j] = bullish ? bear[u][j] : bull[u][j];
+            }
+            const float med_same = static_cast<float>(median5(hs));
+            const float med_opp = static_cast<float>(median5(ho));
+            float e = bullish ? est0[u] : est1[u];
+            if (e <= 0.f) e = med_same;
+            if (e <= 0.f) e = med_opp;
+            if (e <= 0.f && period > 0.f) e = period;
+            if (e <= 0.f) e = fmaxf(bars_f, 1.0f);
+            if (period > 0.f && e > 2.0f * period) e = 2.0f * period;
+            const float tsec = fmaxf(fmaxf(e, bars_f), 1.0f) * prm.spb;
+            const float esec = bars_f * prm.spb;
+            const float prog = tsec > 0.f ? fminf(esec / tsec, 1.0f) : 0.f;
+            const float base = (1.0f - clampf(prog, 0.f, 1.f)) * tsec;
+            const float max_adj = tsec * 0.25f;
+            const float gd_sec = clampf(gd * prm.spb, -max_adj, max_adj);
+            float sci = clampf(base + 0.25f * gd_sec, 0.f, tsec * 1.5f);
+            sci = tsec > 0.f ? sci : 0.f;
+            const float e_struct = fmaxf(tsec - esec, 0.f);
+            const float e_hist = fmaxf(med_same * prm.spb - esec, 0.f);
+            const float w_struct = tsec > 0.f ? 0.5f : 0.f;
+            const float w_hist = med_same > 0.f ? 0.35f : 0.f;
+            const float w_sci = sci > 0.f ? 0.15f : 0.f;
+            const float wsum = w_struct + w_hist + w_sci;
+            const float blend = (e_struct * w_struct + e_hist * w_hist + sci * w_sci) / fmaxf(wsum, 1e-9f);
+            const float hyb = wsum > 0.f ? blend : e_struct;
+            float max_ref = fmaxf(fmaxf(tsec, med_same * prm.spb), period * prm.spb);
+            max_ref = max_ref <= 0.f ? prm.spb : max_ref;
+            eta = clampf(hyb, 0.f, 1.5f * max_ref);
+          }
+          eta = period > 0.f ? eta : 0.f;
 
-        // phase-history learning on a color change
-        const bool was_bull = colorp > 0.5f;
-        const bool store_bull = changed & was_bull & (period > 0.f);
-        const bool store_bear = changed & !was_bull & (period > 0.f);
-        if (store_bull) {
-          for (int j = 4; j > 0; --j) bull[j] = bull[j - 1];
-          bull[0] = bars;
-          est0 = static_cast<float>(bars);
-        }
-        if (store_bear) {
-          for (int j = 4; j > 0; --j) bear[j] = bear[j - 1];
-          bear[0] = bars;
-          est1 = static_cast<float>(bars);
-        }
+          // phase-history learning on a color change
+          const bool was_bull = colorp[u] > 0.5f;
+          const bool store_bull = changed & was_bull & (period > 0.f);
+          const bool store_bear = changed & !was_bull & (period > 0.f);
+          if (store_bull) {
+            for (int j = 4; j > 0; --j) bull[u][j] = bull[u][j - 1];
+            bull[u][0] = bars[u];
+            est0[u] = static_cast<float>(bars[u]);
+          }
+          if (store_bear) {
+            for (int j = 4; j > 0; --j) bear[u][j] = bear[u][j - 1];
+            bear[u][0] = bars[u];
+            est1[u] = static_cast<float>(bars[u]);
+          }
 
-        // monotonic countdown within a phase
-        const float expected = fmaxf(lasteta - prm.spb, 0.f);
-        if (!changed & (lasteta > 0.f) & !first) eta = fminf(eta, expected);
-        eta = period > 0.f ? eta : 0.f;
-        if ((prm.prior_bars == 0) & first) eta = 0.f;
-        eta = ok ? eta : 0.f;
-        if (slot) {
-          w.eta[idx] = eta;
-          w.color[idx] = color;
+          // monotonic countdown within a phase
+          const float expected = fmaxf(lasteta[u] - prm.spb, 0.f);
+          if (!changed & (lasteta[u] > 0.f) & !first) eta = fminf(eta, expected);
+          eta = period > 0.f ? eta : 0.f;
+          if ((prm.prior_bars == 0) & first) eta = 0.f;
+          eta = ok ? eta : 0.f;
+          if (slot[u]) {
+            w.eta[idx] = eta;
+            w.color[idx] = color;
+          }
+          colorp[u] = color;
+          bars[u] = bars_now;
+          lasteta[u] = eta;
+          vprev[u] = v;
         }
-        colorp = color;
-        bars = bars_now;
-        lasteta = eta;
-        vprev = v;
       }
       __syncwarp();
 
@@ -562,24 +618,44 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
       __syncwarp();
 
       // ---- 6. lane s: FollowFirst ----
-      float rawn = 0.f, stn = 0.f, periodf = 0.f;
-      bool okf = false;
+      float rawn[NS], stn[NS], periodf[NS];
+      bool okf[NS];
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        rawn[u] = 0.f; stn[u] = 0.f; periodf[u] = 0.f; okf[u] = false;
+      }
       auto fetch_ff = [&](int f) {
-        if (slot) {
-          const int idx = f * S + lane;
-          rawn = w.eta[idx]; stn = w.color[idx]; periodf = stg.period[idx];
-          okf = stg_valid[idx] != 0;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          if (slot[u]) {
+            const int idx = f * S + lane + 32 * u;
+            rawn[u] = w.eta[idx]; stn[u] = w.color[idx]; periodf[u] = stg.period[idx];
+            okf[u] = stg_valid[idx] != 0;
+          }
         }
       };
       fetch_ff(0);
       for (int f = 0; f < nf; ++f) {
         const int tabs = tpos + i0 + f;
-        const float eta_raw = rawn, st = stn, period = periodf;
-        const bool ok = okf;
+        float eta_raw[NS], st[NS], period[NS];
+        bool ok[NS];
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          eta_raw[u] = rawn[u]; st[u] = stn[u]; period[u] = periodf[u]; ok[u] = okf[u];
+        }
         if (f + 1 < nf) fetch_ff(f + 1);
-        float sig = 0.f, conf = 0.f;
+        float sig[NS];
+        float conf = 0.f;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) sig[u] = 0.f;
         if (prm.ff_enable) {
-          const float pos_eta_v = __shfl_sync(kFull, fabsf(eta_raw), min(max(position, 0), S - 1));
+          const int pslot = min(max(position, 0), S - 1);
+          float pos_eta_v = 0.f;
+#pragma unroll
+          for (int u = 0; u < NS; ++u) {
+            const float e = __shfl_sync(kFull, fabsf(eta_raw[u]), pslot & 31);
+            pos_eta_v = (pslot >> 5) == u ? e : pos_eta_v;
+          }
           bool has_pos = position >= 0;
           const float pos_eta = has_pos ? pos_eta_v : 0.f;
           if (has_pos & (pos_eta <= prm.ff_exit)) {
@@ -587,58 +663,87 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
             position = -1;
           }
           has_pos = position >= 0;
-          bool elig = ok & (period >= prm.ff_min_p) & (period <= prm.ff_max_p) & (stp != 0.f) &
-                      (tabs >= 1);
-          if (prm.ff_single) elig = elig & !has_pos;
-          const bool same_state = st == stp;
-          const float thr = prm.ff_thr;
-          const bool pre_sell = (st > 0.f) & (etp > 0.f) & (eta_raw > 0.f) & (etp > thr) &
-                                (eta_raw <= thr);
-          const bool pre_buy = (st < 0.f) & (etp < 0.f) & (eta_raw < 0.f) & (fabsf(etp) > thr) &
-                               (fabsf(eta_raw) <= thr);
-          const int pre_dir = pre_buy ? 1 : (pre_sell ? -1 : 0);
-          const bool pre_fire = elig & same_state & (prm.ff_entry_pos != 0) & (pre_dir != 0);
-          const int turn = ((stp == -1.f) & (st == 1.f)) ? 1 : (((stp == 1.f) & (st == -1.f)) ? -1 : 0);
-          const bool suppressed = (prm.ff_ignore_same != 0) & (lastdir == turn) & (tabs > lastbar) &
-                                  (turn != 0);
-          const bool turn_fire = elig & !same_state & (turn != 0) & !suppressed;
-          bool fire = pre_fire | turn_fire;
-          const int dir = pre_fire ? pre_dir : turn;
-          const float value = pre_fire ? 60.0f * static_cast<float>(pre_dir)
-                                       : 100.0f * static_cast<float>(turn);
+          bool fire[NS], pre_fire[NS];
+          int dir[NS];
+          float value[NS];
+#pragma unroll
+          for (int u = 0; u < NS; ++u) {
+            bool elig = ok[u] & (period[u] >= prm.ff_min_p) & (period[u] <= prm.ff_max_p) &
+                        (stp[u] != 0.f) & (tabs >= 1);
+            if (prm.ff_single) elig = elig & !has_pos;
+            const bool same_state = st[u] == stp[u];
+            const float thr = prm.ff_thr;
+            const bool pre_sell = (st[u] > 0.f) & (etp[u] > 0.f) & (eta_raw[u] > 0.f) &
+                                  (etp[u] > thr) & (eta_raw[u] <= thr);
+            const bool pre_buy = (st[u] < 0.f) & (etp[u] < 0.f) & (eta_raw[u] < 0.f) &
+                                 (fabsf(etp[u]) > thr) & (fabsf(eta_raw[u]) <= thr);
+            const int pre_dir = pre_buy ? 1 : (pre_sell ? -1 : 0);
+            pre_fire[u] = elig & same_state & (prm.ff_entry_pos != 0) & (pre_dir != 0);
+            const int turn = ((stp[u] == -1.f) & (st[u] == 1.f)) ? 1
+                           : (((stp[u] == 1.f) & (st[u] == -1.f)) ? -1 : 0);
+            const bool suppressed = (prm.ff_ignore_same != 0) & (lastdir[u] == turn) &
+                                    (tabs > lastbar[u]) & (turn != 0);
+            const bool turn_fire = elig & !same_state & (turn != 0) & !suppressed;
+            fire[u] = pre_fire[u] | turn_fire;
+            dir[u] = pre_fire[u] ? pre_dir : turn;
+            value[u] = pre_fire[u] ? 60.0f * static_cast<float>(pre_dir)
+                                   : 100.0f * static_cast<float>(turn);
+          }
           if (prm.ff_single) {
-            const unsigned fm = __ballot_sync(kFull, fire);
-            fire = fire & (fm != 0u) & (lane == __ffs(fm) - 1);
+            // only the lowest firing slot fires
+            bool before = false;
+#pragma unroll
+            for (int u = 0; u < NS; ++u) {
+              const unsigned fm = __ballot_sync(kFull, fire[u]);
+              fire[u] = fire[u] & !before & (fm != 0u) & (lane == __ffs(fm) - 1);
+              before |= fm != 0u;
+            }
           }
-          sig = fire ? value : 0.f;
-          if (fire & (!pre_fire | (prm.ff_single != 0))) {
-            lastdir = dir;
-            lastbar = tabs;
+          int n_buys = 0, n_sells = 0, first_fired = -1, n_active = 0;
+          bool any_buy = false;
+#pragma unroll
+          for (int u = 0; u < NS; ++u) {
+            sig[u] = fire[u] ? value[u] : 0.f;
+            if (fire[u] & (!pre_fire[u] | (prm.ff_single != 0))) {
+              lastdir[u] = dir[u];
+              lastbar[u] = tabs;
+            }
+            const unsigned buys = __ballot_sync(kFull, fire[u] & (dir[u] > 0));
+            const unsigned sells = __ballot_sync(kFull, fire[u] & (dir[u] < 0));
+            const unsigned fired = buys | sells;   // a firing slot has a direction
+            if ((first_fired < 0) & (fired != 0u)) first_fired = 32 * u + __ffs(fired) - 1;
+            any_buy |= buys != 0u;
+            n_buys += __popc(buys);
+            n_sells += __popc(sells);
+            n_active += __popc(__ballot_sync(kFull, ok[u]));
           }
-          const unsigned buys = __ballot_sync(kFull, fire & (dir > 0));
-          const unsigned sells = __ballot_sync(kFull, fire & (dir < 0));
-          const unsigned fired = buys | sells;   // a firing slot has a direction
-          if ((prm.ff_single != 0) & (fired != 0u)) {
-            position = __ffs(fired) - 1;
-            mode = buys ? 0 : 1;
+          if ((prm.ff_single != 0) & (first_fired >= 0)) {
+            position = first_fired;
+            mode = any_buy ? 0 : 1;
           }
-          const int n_active = __popc(__ballot_sync(kFull, ok));
-          const float buy_pct = pct_tab[n_active * 33 + __popc(buys)];
-          const float sell_pct = pct_tab[n_active * 33 + __popc(sells)];
+          const float buy_pct = pct_tab[n_active * kPct + n_buys];
+          const float sell_pct = pct_tab[n_active * kPct + n_sells];
           conf = ((n_active > 0) & (buy_pct >= prm.ff_conf_pct) & (buy_pct >= sell_pct)) ? prm.ff_lot
                : (((n_active > 0) & (sell_pct >= prm.ff_conf_pct) & (sell_pct > buy_pct)) ? -prm.ff_lot
                                                                                        : 0.f);
         }
-        stp = st;
-        etp = eta_raw;
-        if (slot) out.sig[(x_sym + i0 + f) * S + lane] = sig;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) {
+          stp[u] = st[u];
+          etp[u] = eta_raw[u];
+          if (slot[u]) out.sig[(x_sym + i0 + f) * S + lane + 32 * u] = sig[u];
+        }
         if (lane == 0) out.conf[x_sym + i0 + f] = conf;
       }
 
       // the lag ring keeps the chunk's last cycle values
-      if (slot) {
-        for (int f = max(0, nf - cap); f < nf; ++f) {
-          ring[((tpos + i0 + f) % cap) * S + lane] = w.v[f * S + lane];
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        const int sl = lane + 32 * u;
+        if (slot[u]) {
+          for (int f = max(0, nf - cap); f < nf; ++f) {
+            ring[((tpos + i0 + f) % cap) * S + sl] = w.v[f * S + sl];
+          }
         }
       }
     }
@@ -646,17 +751,21 @@ __global__ void __launch_bounds__(kThreads) v757_tail_kernel(
   }
 
   // ---- final state ----
-  if (slot) {
-    fin.y1[bs] = y1; fin.y2[bs] = y2; fin.vprev[bs] = vprev;
-    fin.colorp[bs] = colorp; fin.lasteta[bs] = lasteta;
-    fin.est[(2LL * b) * S + lane] = est0; fin.est[(2LL * b + 1) * S + lane] = est1;
-    fin.stp[bs] = stp; fin.etp[bs] = etp; fin.bars[bs] = bars;
-    fin.lastdir[bs] = lastdir; fin.lastbar[bs] = lastbar;
-    for (int j = 0; j < 5; ++j) {
-      fin.bull[(5LL * b + j) * S + lane] = bull[j];
-      fin.bear[(5LL * b + j) * S + lane] = bear[j];
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    const int sl = lane + 32 * u;
+    if (slot[u]) {
+      fin.y1[bs[u]] = y1[u]; fin.y2[bs[u]] = y2[u]; fin.vprev[bs[u]] = vprev[u];
+      fin.colorp[bs[u]] = colorp[u]; fin.lasteta[bs[u]] = lasteta[u];
+      fin.est[(2LL * b) * S + sl] = est0[u]; fin.est[(2LL * b + 1) * S + sl] = est1[u];
+      fin.stp[bs[u]] = stp[u]; fin.etp[bs[u]] = etp[u]; fin.bars[bs[u]] = bars[u];
+      fin.lastdir[bs[u]] = lastdir[u]; fin.lastbar[bs[u]] = lastbar[u];
+      for (int j = 0; j < 5; ++j) {
+        fin.bull[(5LL * b + j) * S + sl] = bull[u][j];
+        fin.bear[(5LL * b + j) * S + sl] = bear[u][j];
+      }
+      for (int r = 0; r < cap; ++r) fin.ring[((long long)b * cap + r) * S + sl] = ring[r * S + sl];
     }
-    for (int r = 0; r < cap; ++r) fin.ring[((long long)b * cap + r) * S + lane] = ring[r * S + lane];
   }
   if (tid == 0) {
     fin.xh[2 * b] = xh0; fin.xh[2 * b + 1] = xh1;
@@ -694,15 +803,16 @@ extern "C" int v757_tail_launch(void* const* in, void* const* init,
                                 void* const* out, void* const* fin,
                                 const void* prm, int B, void* stream) {
   const TailParams p = *static_cast<const TailParams*>(prm);
-  if (p.S < 1 || p.S > 32 || p.cap < 2 || p.T < 1) {
+  if (p.S < 1 || p.S > kMaxSlots || p.cap < 2 || p.T < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
   const int F = frames_per_chunk(p.S);
   const size_t smem = dynamic_smem(F, p.S, p.cap);
+  auto kernel = p.S <= 32 ? v757_tail_kernel<1> : v757_tail_kernel<2>;
   // the dynamic size, with the static arrays, may pass the default 48 KB
   const cudaError_t err = cudaFuncSetAttribute(
-      v757_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   TailIn ins{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
              static_cast<const float*>(in[2]), static_cast<const uint8_t*>(in[3]),
@@ -712,7 +822,7 @@ extern "C" int v757_tail_launch(void* const* in, void* const* init,
             static_cast<float*>(out[4]), static_cast<float*>(out[5]),
             static_cast<float*>(out[6]), static_cast<float*>(out[7])};
   TailState st0 = init ? state_from(init) : TailState{};
-  v757_tail_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       ins, st0, init != nullptr, o, state_from(fin), p, F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,25 @@ cycle:
     [8] snr_db      [9] residual_power [10] eigen_ratio [11] score
     [12] kalman_pred [13] eta_confidence [14] method_id
 
-This package ports the flagship MUSIC branch (`Method.MUSIC` with the
-series-level high-pass, no per-window detrend or taper). Every other
-branch raises `NotImplementedError` naming its ROADMAP item.
+Every branch of the JAX package's entry point is here, one `nn.Module`
+per method holding its tables as buffers (`RidgeExtractor`,
+`EspritExtractor`, `MusicExtractor`, `AutoExtractor`, built once per
+(cfg, device, dtype) by `extractor`):
+
+- FFT ridge: the band spectrum of each framed window (kernel B3 on the
+  card; the JAX package's hopped DFT is not ported, ROADMAP A3, so every
+  ridge config takes the framed route), then `_ridge_attrs_from_spec`;
+- ESPRIT, with the series-level high-pass fast path when no per-window
+  detrend or taper runs;
+- MUSIC, with the flagship's series-level fast path, and otherwise the
+  in-window branch (per-window high-pass, per-band decimation and
+  high-pass inside the window, seeds from the framed spectrum);
+- AUTO: MUSIC and ridge on the same windows, the MUSIC record where its
+  eigen ratio reaches `auto_eigen_threshold`, the ridge record otherwise;
+- per-window preconditioning: EHLERS by `frame_highpassed` (then the
+  taper), LINEAR and the taper by `_precondition`.
+
+`extract_cycles` is the single-window call on a series' trailing window.
 """
 
 from __future__ import annotations
@@ -74,7 +90,10 @@ class ExtractConfig:
 
     `use_pallas_dft`, `use_hopped_dft` and `music_xla_select` select TPU
     code paths of the JAX package; they are kept for the carry-over and
-    read by nothing here.
+    read by nothing here. In particular every FFT-ridge config takes the
+    framed route (the band DFT of each window, kernel B3 on the card),
+    also where the JAX package takes its hopped DFT (`use_hopped_dft`,
+    ROADMAP A3); the two agree to ~2e-7.
     """
 
     window: int = 4096
@@ -219,10 +238,11 @@ def frame_series(series: torch.Tensor, window: int, hop: int) -> torch.Tensor:
 
 
 @lru_cache(maxsize=8)
-def _series_highpass(trend_period: int, device: torch.device):
+def _series_highpass(trend_period: int, device: torch.device,
+                     dtype: torch.dtype = torch.float32):
     from wavespec_tpu_torch.ops.detrend import HighpassMXU
 
-    return HighpassMXU((trend_period,)).to(device)
+    return HighpassMXU((trend_period,), dtype=dtype).to(device)
 
 
 def frame_highpassed(series: torch.Tensor, window: int, hop: int,
@@ -237,61 +257,226 @@ def frame_highpassed(series: torch.Tensor, window: int, hop: int,
     geometric decay: ``detr_w[j] = hp_s[s0 + j] - alpha^j * delta_w`` with
     ``delta_w = 2c p[s0] - trend_s[s0]``. The series-level filter is
     `HighpassMXU` at `trend_period` (about 1e-6 relative of the JAX
-    package's scan); ``alpha^j`` is built in float64 and cast.
+    package's scan); ``alpha^j`` is built in float64 and cast. Computed in
+    float64 for a float64 series (CPU only), in float32 otherwise.
     """
+    dtype = torch.float64 if series.dtype == torch.float64 else torch.float32
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     wf = 2.0 * np.pi / trend_period
     alpha = (1.0 - np.sin(wf)) / np.cos(wf)
     c = (1.0 - alpha) / 2.0
-    aj = torch.from_numpy((alpha ** np.arange(window)).astype(np.float32))
-    series = series.to(torch.float32)
-    hp_s = _series_highpass(trend_period, series.device)(series)[..., 0, :]
+    aj = torch.from_numpy((alpha ** np.arange(window)).astype(np_dtype))
+    series = series.to(dtype)
+    hp_s = _series_highpass(trend_period, series.device, dtype)(series)[..., 0, :]
     trend_s = series - hp_s
     framed = frame_series(hp_s, window, hop)
     nwin = framed.shape[-2]
     p0 = series[..., ::hop][..., :nwin]
     t0 = trend_s[..., ::hop][..., :nwin]
-    delta = float(np.float32(2.0 * c)) * p0 - t0
+    delta = float(np_dtype(2.0 * c)) * p0 - t0
     out = delta[..., None] * aj.to(series.device)
     return torch.sub(framed, out, out=out)   # one window-sized buffer
 
 
-def _require_music_slice(cfg: ExtractConfig) -> None:
-    if cfg.method != Method.MUSIC:
-        item = {Method.FFT_RIDGE: "A7", Method.ESPRIT: "A8", Method.AUTO: "A8"}
-        raise NotImplementedError(
-            f"method {cfg.method.name} is not ported yet "
-            f"(ROADMAP {item[cfg.method]})")
-    if cfg.detrend != DetrendMode.NONE or cfg.taper != WindowType.NONE:
-        raise NotImplementedError(
-            "per-window detrend/taper is not ported yet (ROADMAP A9)")
-    if not cfg.music_highpass:
-        raise NotImplementedError(
-            "music_highpass=False is not ported yet (ROADMAP A5)")
+def _precondition(windows: torch.Tensor, cfg: ExtractConfig, detrend_hp=None,
+                  taper: torch.Tensor | None = None) -> torch.Tensor:
+    """Detrend and taper a batch of windows ``[..., n]``: LINEAR by the
+    least-squares line, EHLERS by the one-pole high-pass at
+    `cfg.trend_period` (`detrend_hp`, an `ops.detrend.HighpassMXU` at
+    that period), then the taper coefficients."""
+    from wavespec_tpu_torch.ops.detrend import linear_detrend
+
+    if cfg.detrend == DetrendMode.LINEAR:
+        windows = linear_detrend(windows)
+    elif cfg.detrend == DetrendMode.EHLERS:
+        windows = detrend_hp(windows)[..., 0, :]
+    if taper is not None:
+        windows = windows * taper
+    return windows
 
 
-class MusicExtractor(nn.Module):
-    """The MUSIC batch path of one `ExtractConfig`, with its static tables
-    as buffers: the series-level high-pass, the per-band high-passes and
-    the frequency-grid tables. Build once, move with ``.to(device)``.
+def _ridge_attrs_from_spec(spec: torch.Tensor, cfg: ExtractConfig) -> torch.Tensor:
+    """Ridge attrs ``[..., top_k, 15]`` from a band spectrum ``[..., >=
+    k_max + 3]`` (bins 0..k_max + 2 of the window's rFFT): the top_k
+    in-band bins by power (equal powers in index order), amplitude from
+    |X_k| and the taper's coherent gain, phase at the newest bar,
+    coherence against the +/-2-bin neighbourhood (out-of-band neighbours
+    included), and the peak-to-runner-up ratio as eigen_ratio."""
+    from wavespec_tpu_torch.analyze.music import topk_stable
+    from wavespec_tpu_torch.ops.arith import sdiv
+    from wavespec_tpu_torch.ops.spectrum import band_indices
+    from wavespec_tpu_torch.ops.windows import coherent_gain
+
+    n = cfg.window
+    k_min, k_max = band_indices(n, cfg.min_period, cfg.max_period)
+    re, im = spec.real, spec.imag
+    power = re ** 2 + im ** 2
+    band_p = power[..., k_min: k_max + 1]
+    total_inband = _stable_row_sum(band_p)
+    n_band = float(k_max - k_min + 1)
+
+    peak_p, band_idx = topk_stable(band_p, cfg.top_k)
+    valid = peak_p > 0
+    picked = _stable_row_sum(peak_p)
+    denom = max(n_band - cfg.top_k, 1.0)
+    noise_floor = sdiv(torch.clamp(total_inband - picked, min=0.0), denom)
+    freq = sdiv((band_idx + k_min).to(power.dtype), float(n))
+
+    # the 5-bin neighbourhood sum over the whole spectrum, then the band
+    pad = 2
+    padp = torch.nn.functional.pad(power, (pad, pad))
+    nb_full = sum(padp[..., off: off + power.shape[-1]] for off in range(2 * pad + 1))
+    take = lambda x: torch.gather(x[..., k_min: k_max + 1], -1, band_idx)
+    re_k, im_k, nb_sum = take(re), take(im), take(nb_full)
+
+    cg = coherent_gain(n, cfg.taper)
+    amp = sdiv(2.0 * torch.sqrt(re_k * re_k + im_k * im_k), n * cg)
+    omega = 2.0 * math.pi * freq
+    phase_end = _wrap_pi(omega * (n - 1) + torch.atan2(im_k, re_k) + math.pi / 2.0)
+    coherence = peak_p / torch.clamp(nb_sum, min=1e-30)
+    runner = torch.clamp(torch.cat([peak_p[..., 1:], noise_floor[..., None]], dim=-1),
+                         min=1e-30)
+    eigen_ratio = peak_p / runner
+    return _attrs_from_peaks(freq, amp, phase_end, peak_p, valid, total_inband, noise_floor,
+                             coherence, eigen_ratio, int(Method.FFT_RIDGE), cfg)
+
+
+def _fft_ridge(windows: torch.Tensor, cfg: ExtractConfig) -> torch.Tensor:
+    """FFT-ridge attrs ``[..., top_k, 15]`` of preconditioned windows: bins
+    ``[0, k_max + 3)`` of their framed spectrum (kernel B3 on the card,
+    the counterpart of `rfft_band_fused_any`), so that the band's
+    +/-2-bin neighbourhoods see their true out-of-band neighbours; at most
+    the n / 2 bins below Nyquist, as the JAX package's `rfft_mxu` gives."""
+    from wavespec_tpu_torch.ops.spectrum import band_indices, framed_spectrum
+
+    _, k_max = band_indices(cfg.window, cfg.min_period, cfg.max_period)
+    n_bins = min(k_max + 3, cfg.window // 2)
+    return _ridge_attrs_from_spec(framed_spectrum(windows, n_bins), cfg)
+
+
+class _Extractor(nn.Module):
+    """What every method shares: the per-window preconditioning of `cfg`
+    (the EHLERS detrend's high-pass and the taper as buffers), the
+    rolling batch's framing, and the checks of a call. A subclass gives
+    `extract_windows` (the method on preconditioned windows) and, where
+    the JAX package has one, a fast path in `forward`."""
+
+    def __init__(self, cfg: ExtractConfig, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        from wavespec_tpu_torch.ops.detrend import HighpassMXU
+        from wavespec_tpu_torch.ops.windows import window_coefficients
+
+        self.cfg = cfg
+        self.dtype = dtype
+        self.detrend_hp = (HighpassMXU((cfg.trend_period,), dtype=dtype)
+                           if cfg.detrend == DetrendMode.EHLERS else None)
+        self.register_buffer(
+            "taper", window_coefficients(cfg.window, cfg.taper, dtype)
+            if cfg.taper != WindowType.NONE else None, persistent=False)
+
+    def precondition(self, windows: torch.Tensor) -> torch.Tensor:
+        return _precondition(windows.to(self.dtype), self.cfg, self.detrend_hp, self.taper)
+
+    def _series(self, series: torch.Tensor, hop: int) -> torch.Tensor:
+        cfg = self.cfg
+        if series.shape[-1] < cfg.window:
+            raise ValueError(f"series of {series.shape[-1]} samples is shorter than the "
+                             f"window {cfg.window}")
+        if hop < 1:
+            raise ValueError(f"hop must be >= 1, got {hop}")
+        return series.to(self.dtype)
+
+    def frames(self, series: torch.Tensor, hop: int) -> torch.Tensor:
+        """The rolling batch's preconditioned windows ``[..., nwin, n]``:
+        EHLERS by the rank-1 identity of `frame_highpassed`, then the
+        taper; otherwise framing, then `_precondition`."""
+        cfg = self.cfg
+        if cfg.detrend == DetrendMode.EHLERS:
+            windows = frame_highpassed(series, cfg.window, hop, cfg.trend_period).to(self.dtype)
+            # a fresh buffer: taper it in place
+            return windows if self.taper is None else windows.mul_(self.taper)
+        return self.precondition(frame_series(series, cfg.window, hop))
+
+    def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
+        return self.extract_windows(self.frames(self._series(series, hop), hop))
+
+
+def _series_fast_path(cfg: ExtractConfig) -> bool:
+    """The series-level high-pass fast paths (MUSIC, ESPRIT) apply: the
+    MUSIC high-pass on and no per-window preconditioning between it and
+    the window."""
+    return (cfg.music_highpass and cfg.detrend == DetrendMode.NONE
+            and cfg.taper == WindowType.NONE)
+
+
+class RidgeExtractor(_Extractor):
+    """The FFT-ridge path of one `ExtractConfig` (framed route)."""
+
+    def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
+        return _fft_ridge(windows, self.cfg)
+
+
+class EspritExtractor(_Extractor):
+    """The ESPRIT path of one `ExtractConfig`: the MUSIC high-pass at
+    `music_hp_period` as a buffer, applied once over the series (fast
+    path) or per window."""
+
+    def __init__(self, cfg: ExtractConfig, dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, dtype)
+        from wavespec_tpu_torch.analyze.music import music_hp_period
+        from wavespec_tpu_torch.ops.detrend import HighpassMXU
+
+        self.main_hp = HighpassMXU((music_hp_period(cfg),), dtype=dtype)
+
+    def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
+        from wavespec_tpu_torch.analyze.esprit import esprit_extract
+
+        return esprit_extract(windows, self.cfg, highpass=self.main_hp)
+
+    def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
+        from wavespec_tpu_torch.analyze.esprit import esprit_extract
+
+        cfg = self.cfg
+        if not _series_fast_path(cfg):
+            return super().forward(series, hop)
+        series = self._series(series, hop)
+        series = series - series[..., :1]
+        hp_series = self.main_hp(series)[..., 0, :]
+        windows = frame_series(hp_series, cfg.window, hop)
+        return esprit_extract(windows, cfg, pre_highpassed=True)
+
+
+class MusicExtractor(_Extractor):
+    """The MUSIC path of one `ExtractConfig`, with its static tables as
+    buffers: the series-level high-pass, the per-band high-passes at the
+    full rate (series level) and at the decimated rates (in-window
+    branch), and the frequency-grid tables. Build once, move with
+    ``.to(device)``.
 
     ``forward(series [..., L], hop) -> attrs [..., nwin, top_k, 15]``,
     computed in `dtype`: float32, as the JAX package computes, or float64
     (CPU only: the CUDA kernels take float32), which the tables are then
-    built in too.
+    built in too. Where the series-level fast path does not apply (the
+    MUSIC high-pass off, or per-window detrend or taper), each window
+    takes the in-window branch.
     """
 
     def __init__(self, cfg: ExtractConfig, dtype: torch.dtype = torch.float32):
-        super().__init__()
+        super().__init__(cfg, dtype)
         from wavespec_tpu_torch.analyze.music import (
-            GridTables, band_hp_periods, music_hp_period)
+            GridTables, band_hp_periods, band_rows_hp_periods, music_hp_period)
         from wavespec_tpu_torch.ops.detrend import HighpassMXU
 
-        _require_music_slice(cfg)
-        self.cfg = cfg
-        self.dtype = dtype
         self.main_hp = HighpassMXU((music_hp_period(cfg),), dtype=dtype)
         self.band_hp = HighpassMXU(band_hp_periods(cfg), dtype=dtype)
+        self.rows_hp = HighpassMXU(band_rows_hp_periods(cfg), dtype=dtype)
         self.tables = GridTables(cfg, dtype)
+
+    def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
+        from wavespec_tpu_torch.analyze.music import music_extract
+
+        return music_extract(windows, self.cfg, None, None, self.tables, pre_highpassed=False,
+                             main_hp=self.main_hp, rows_hp=self.rows_hp)
 
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
         from wavespec_tpu_torch.analyze.music import (
@@ -299,13 +484,9 @@ class MusicExtractor(nn.Module):
         from wavespec_tpu_torch.ops.spectrum import rfft_band
 
         cfg = self.cfg
-        if series.shape[-1] < cfg.window:
-            raise ValueError(
-                f"series of {series.shape[-1]} samples is shorter than the "
-                f"window {cfg.window}")
-        if hop < 1:
-            raise ValueError(f"hop must be >= 1, got {hop}")
-        series = series.to(self.dtype)
+        if not _series_fast_path(cfg):
+            return super().forward(series, hop)
+        series = self._series(series, hop)
         # Anchor on the first sample before the series-level filter, so the
         # cold-start high-pass sees no level step.
         series = series - series[..., :1]
@@ -316,11 +497,58 @@ class MusicExtractor(nn.Module):
         return music_extract(windows, cfg, band_w, seed_spec, self.tables)
 
 
-@lru_cache(maxsize=8)
-def music_extractor(cfg: ExtractConfig, device: torch.device,
-                    dtype: torch.dtype = torch.float32) -> MusicExtractor:
-    """The `MusicExtractor` of `cfg` on `device`, built once per triple."""
-    return MusicExtractor(cfg, dtype).to(device)
+class AutoExtractor(MusicExtractor):
+    """`Method.AUTO`: MUSIC (in-window branch) and FFT ridge on the same
+    preconditioned windows; per window, every cycle's record is MUSIC's
+    where the MUSIC eigen ratio reaches `auto_eigen_threshold` and the
+    ridge's otherwise, each with its own method_id. AUTO has no fast
+    path in the JAX package either."""
+
+    def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
+        music = super().extract_windows(windows)
+        ridge = _fft_ridge(windows, self.cfg)
+        confident = music[..., :, EIGEN_RATIO] >= self.cfg.auto_eigen_threshold
+        return torch.where(confident[..., None], music, ridge)
+
+    def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
+        return _Extractor.forward(self, series, hop)
+
+
+_EXTRACTORS = {Method.FFT_RIDGE: RidgeExtractor, Method.ESPRIT: EspritExtractor,
+               Method.MUSIC: MusicExtractor, Method.AUTO: AutoExtractor}
+
+
+@lru_cache(maxsize=16)
+def extractor(cfg: ExtractConfig, device: torch.device,
+              dtype: torch.dtype = torch.float32) -> _Extractor:
+    """The extractor module of `cfg`'s method on `device`, built once per
+    triple (at most 16 kept). On a CUDA device it names the kernels' size
+    limits first (`check_card_limits`)."""
+    if device.type == "cuda":
+        check_card_limits(cfg)
+    return _EXTRACTORS[cfg.method](cfg, dtype).to(device)
+
+
+def check_card_limits(cfg: ExtractConfig) -> None:
+    """Raise ValueError where a kernel on `cfg`'s path on the card cannot
+    take its size: the Jacobi eigh past order `kernels.jacobi.MAX_M`
+    (covariances of order ar_order), and the candidate selection past the
+    JAX package's own 128 candidates (MUSIC and AUTO)."""
+    from wavespec_tpu_torch.analyze.music import _band_plan
+    from wavespec_tpu_torch.kernels.jacobi import launch_plan
+    from wavespec_tpu_torch.kernels.music_select import check_candidates
+
+    if cfg.method != Method.FFT_RIDGE:
+        launch_plan(cfg.ar_order)
+    if cfg.method in (Method.MUSIC, Method.AUTO):
+        check_candidates(cfg, len(_band_plan(cfg)))
+
+
+def _module_for(series: torch.Tensor, cfg: ExtractConfig) -> _Extractor:
+    if series.dtype == torch.float64 and series.is_cuda:
+        raise ValueError("float64 runs on the CPU only: the CUDA kernels take float32")
+    dtype = torch.float64 if series.dtype == torch.float64 else torch.float32
+    return extractor(cfg, series.device, dtype)
 
 
 def extract_cycles_batch(series: torch.Tensor,
@@ -330,8 +558,19 @@ def extract_cycles_batch(series: torch.Tensor,
     ``[S, L]``: ``nwin = 1 + (L - window) // hop`` windows, window w
     covering ``series[..., w*hop : w*hop + window]``, on the device of
     `series`. Returns ``[..., nwin, top_k, 15]``, float64 for a float64
-    `series` and float32 otherwise.
+    `series` (CPU only) and float32 otherwise.
     """
-    dtype = torch.float64 if series.dtype == torch.float64 else torch.float32
     with torch.no_grad():
-        return music_extractor(cfg, series.device, dtype)(series, hop)
+        return _module_for(series, cfg)(series, hop)
+
+
+def extract_cycles(series: torch.Tensor, cfg: ExtractConfig = ExtractConfig()) -> torch.Tensor:
+    """Single-window extraction on the trailing `cfg.window` samples of
+    `series` (chronological, oldest first): ``[..., top_k, 15]``, on the
+    device of `series`."""
+    if series.shape[-1] < cfg.window:
+        raise ValueError(f"series of {series.shape[-1]} samples is shorter than the "
+                         f"window {cfg.window}")
+    with torch.no_grad():
+        module = _module_for(series, cfg)
+        return module.extract_windows(module.precondition(series[..., -cfg.window:]))

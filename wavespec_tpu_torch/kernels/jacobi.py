@@ -2,9 +2,10 @@
 replaces `wavespec_tpu/kernels/jacobi_pallas.py::jacobi_eigh_pallas`.
 
 `jacobi_eigh_unsorted` takes a tensor ``[B, m, m]`` float32, contiguous,
-m <= 32, and returns the unsorted eigenpairs; `analyze.jacobi.jacobi_eigh`
-sorts them. The kernel gives each matrix a warp (floor(32 / m) matrices a
-warp for m <= 16) and equals the plain version bitwise. A CPU tensor goes
+m <= `MAX_M`, and returns the unsorted eigenpairs; `analyze.jacobi.
+jacobi_eigh` sorts them. The kernel gives each matrix a warp (floor(32 / m)
+matrices a warp for m <= 16; past m = 32 a lane takes every 32nd rotation,
+column and row) and equals the plain version bitwise. A CPU tensor goes
 to the plain version; there is no fallback on the CUDA path.
 """
 
@@ -18,7 +19,32 @@ import torch
 from wavespec_tpu_torch.analyze.jacobi import _round_robin_pairs, jacobi_eigh_plain
 from wavespec_tpu_torch.kernels._build import check, load_library
 
-MAX_M = 32
+NARROW_M = 32      # past it, the kernel's wide instantiation
+MAX_M = 160        # the wide kernel keeps A and V of a matrix in shared memory
+_SMEM_DEFAULT = 48 * 1024
+_SMEM_OPTIN = 227 * 1024
+_MAX_WARPS = 8
+
+
+def launch_plan(m: int) -> tuple[bool, int, int]:
+    """(wide, warps a block, dynamic shared bytes of a full block) of the
+    kernel at order m, as `csrc/jacobi_eigh.cu::plan` computes them.
+    Raises ValueError past `MAX_M`, where one matrix's A and V no longer
+    fit in the card's 227 KB of shared memory a block."""
+    if not 1 <= m <= MAX_M:
+        raise ValueError(f"m={m} outside [1, {MAX_M}]: the Jacobi kernel holds a "
+                         f"matrix's A and V in shared memory")
+    wide = m > NARROW_M
+    half = (m + (m & 1)) // 2
+    n_rounds = m + (m & 1) - 1
+    mm = m * m
+    g = 32 // m if m <= 16 else 1
+    slot = mm + ((m - mm) % 32 + 32) % 32
+    per_warp = 4 * (2 * g * slot + 2 * g * half)
+    table = 0 if wide else 4 * 2 * n_rounds * half
+    budget = _SMEM_OPTIN if wide else _SMEM_DEFAULT
+    warps = min(_MAX_WARPS, (budget - table) // per_warp)
+    return wide, warps, table + per_warp * warps
 
 
 def _lib() -> ctypes.CDLL:
@@ -56,8 +82,7 @@ def jacobi_eigh_unsorted(a: torch.Tensor, sweeps: int = 6):
     if not a.is_contiguous():
         raise ValueError("input must be contiguous")
     batch, m, _ = a.shape
-    if not 1 <= m <= MAX_M:
-        raise ValueError(f"m={m} outside [1, {MAX_M}]")
+    launch_plan(m)
     tbl, n_rounds, half = pairs_table(m, a.device)
     vals = torch.empty((batch, m), dtype=torch.float32, device=a.device)
     vecs = torch.empty((batch, m, m), dtype=torch.float32, device=a.device)

@@ -39,15 +39,30 @@ def _lib() -> ctypes.CDLL:
 
 
 def list_size(cfg, tables: GridTables) -> int:
-    """Length of the per-band list of positive local maxima the kernel
-    keeps: (top_k - 1) * P + 1, where one pick excludes at most P maxima
-    (`tables.excl_peaks`), so that every greedy pick lies in the list.
-    Raises ValueError past the kernel's capacity."""
-    m = (cfg.top_k - 1) * tables.excl_peaks + 1
-    if m > MAX_LIST:
-        raise ValueError(f"top_k {cfg.top_k} with {tables.excl_peaks} maxima per exclusion "
-                         f"needs lists of {m} maxima; the kernel keeps {MAX_LIST}")
-    return m
+    """Length of the per-band list of positive local maxima that holds
+    every greedy pick: (top_k - 1) * P + 1, where one pick excludes at
+    most P maxima (`tables.excl_peaks`)."""
+    return (cfg.top_k - 1) * tables.excl_peaks + 1
+
+
+def list_capacity(cfg, tables: GridTables) -> tuple[int, bool]:
+    """(entries the kernel's list keeps, whether a round may rescan its
+    band): `list_size` up to the kernel's `MAX_LIST`; past it the list
+    can run out, and a round that finds every entry of a full list
+    excluded rescans the band for the best unexcluded maximum."""
+    m = list_size(cfg, tables)
+    return min(m, MAX_LIST), m > MAX_LIST
+
+
+def check_candidates(cfg, n_bands: int) -> None:
+    """Raise ValueError where the selection takes more than its 128
+    candidates or 8 picks a band, the JAX package's own refusal
+    (`music_select_pallas.py:240-241`)."""
+    k = cfg.top_k
+    c_count = n_bands * k + k
+    if c_count > MAX_CANDIDATES or k > MAX_TOP_K:
+        raise ValueError(f"{c_count} candidates / top_k {k} exceed the "
+                         f"kernel's {MAX_CANDIDATES} / {MAX_TOP_K}")
 
 
 def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
@@ -62,10 +77,10 @@ def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
     keep = min(2 * k, c_count)
     g = tables.freqs.shape[0]
     kb = tables.k_max - tables.k_min + 1
-    if c_count > MAX_CANDIDATES or k > MAX_TOP_K or kb < k:
-        raise ValueError(f"{c_count} candidates / top_k {k} over {kb} bins exceed the "
-                         f"kernel's {MAX_CANDIDATES} / {MAX_TOP_K}")
-    cap = list_size(cfg, tables)
+    check_candidates(cfg, r)
+    if kb < k:
+        raise ValueError(f"top_k {k} over {kb} band bins")
+    cap = list_capacity(cfg, tables)[0]
     for name, x, width in (("pseudo", pseudo, g), ("band_power", band_power, kb)):
         if x.dtype != torch.float32 or not x.is_cuda or x.shape[-1] != width:
             raise ValueError(f"{name}: need CUDA float32 [..., {width}], got "

@@ -18,9 +18,37 @@ from wavespec_tpu_torch.analyze.trackers import (
     SLOT_FIELDS, TrackerConfig, TrackerState, init_state, track_frames_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
 
-MAX_CAPACITY = 64
-MAX_SLOTS = 32
-MAX_CANDIDATES = 2457   # shared-memory staging: 74 KB of the card's 227 KB at one frame a stage
+MAX_CAPACITY = 256   # 8 capacity rows a lane in registers
+MAX_SLOTS = 64       # 2 slots a lane
+_SMEM_OPTIN = 227 * 1024
+_STAGE_BYTES = 24 * 1024
+_MAX_FRAMES = 16
+
+
+def launch_plan(j: int, c: int, s: int, smem_optin: int = _SMEM_OPTIN):
+    """(rows a lane, slots a lane, frames a stage or 0 where the kernel
+    reads the candidates from global memory, dynamic shared bytes) of the
+    kernel at J candidates, capacity c and s slots, as `csrc/tracker.cu::
+    tracker_plan` computes them on a card with `smem_optin` bytes of
+    shared memory a block. Raises ValueError past `MAX_CAPACITY` or
+    `MAX_SLOTS`; J has no limit."""
+    if not (1 <= c <= MAX_CAPACITY and 1 <= s <= MAX_SLOTS and j >= 1):
+        raise ValueError(f"capacity {c}, slots {s}, candidates {j}: the tracker kernel "
+                         f"takes capacity 1..{MAX_CAPACITY} (8 rows a lane) and "
+                         f"1..{MAX_SLOTS} slots (2 a lane)")
+    nr = 2 if c <= 64 else (4 if c <= 128 else 8)
+    ns = 1 if s <= 32 else 2
+    frames = min(max(_STAGE_BYTES // (13 * j), 1), _MAX_FRAMES)
+    smem = 2 * (3 * frames * j + (frames * j + 7) // 4 + 1) * 4
+    fixed = 4 * (16 * 32 * nr + 4) + 16 * 32 * ns
+    staged = fixed + smem <= smem_optin
+    return nr, ns, frames if staged else 0, smem if staged else 0
+
+
+def check_config(cfg: TrackerConfig) -> None:
+    """Raise ValueError, naming the limit, where the kernel cannot take
+    `cfg`'s capacity or slot count."""
+    launch_plan(1, cfg.capacity, cfg.n_slots)
 
 _OUT_DTYPES = {"slot_period": torch.float32, "slot_power": torch.float32,
                "slot_fft_index": torch.int32, "slot_valid": torch.bool,
@@ -63,9 +91,7 @@ def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
 
     lead, (t_frames, j) = tuple(periods.shape[:-2]), tuple(periods.shape[-2:])
     c, s = cfg.capacity, cfg.n_slots
-    if not (1 <= c <= MAX_CAPACITY and 1 <= s <= MAX_SLOTS and 1 <= j <= MAX_CANDIDATES):
-        raise ValueError(f"capacity {c}, slots {s}, candidates {j} outside the "
-                         f"kernel's {MAX_CAPACITY}, {MAX_SLOTS}, {MAX_CANDIDATES}")
+    launch_plan(j, c, s)
     dev = periods.device
     for name, x, dt in (("periods", periods, torch.float32),
                         ("powers", powers, torch.float32),

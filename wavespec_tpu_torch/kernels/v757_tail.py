@@ -19,7 +19,15 @@ from wavespec_tpu_torch.pipeline.tail import (TAIL_FIELDS, V757TailState,
                                               ring_capacity, v757_tail_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
 
-MAX_SLOTS = 32
+MAX_SLOTS = 64   # two slots a lane of the walking warp
+
+
+def slots_per_lane(s: int) -> int:
+    """Slots a lane of the kernel's walking warp takes at `s` slots (1 or
+    2). Raises ValueError past `MAX_SLOTS`."""
+    if not 1 <= s <= MAX_SLOTS:
+        raise ValueError(f"{s} slots: the tail kernel takes 1..{MAX_SLOTS} slots (2 a lane)")
+    return 1 if s <= 32 else 2
 
 
 class _Params(ctypes.Structure):
@@ -108,9 +116,9 @@ def v757_tail(newest: torch.Tensor, price_prev: torch.Tensor, periods: torch.Ten
 
     lead, (t_frames, s) = tuple(periods.shape[:-2]), tuple(periods.shape[-2:])
     dev = periods.device
-    if not 1 <= s <= MAX_SLOTS or t_frames < 1:
-        raise ValueError(f"{s} slots, {t_frames} frames: the kernel takes "
-                         f"1..{MAX_SLOTS} slots and at least one frame")
+    slots_per_lane(s)
+    if t_frames < 1:
+        raise ValueError(f"{t_frames} frames: the kernel takes at least one frame")
     for name, x, dt, shape in (
             ("newest", newest, torch.float32, (*lead, t_frames)),
             ("price_prev", price_prev, torch.float32, (*lead, 2)),

@@ -1,5 +1,7 @@
-"""Ehlers one-pole high-pass as blocked lower-triangular Toeplitz products
-(counterpart of `wavespec_tpu/ops/detrend.py::ehlers_highpass_detrend_mxu`).
+"""Detrending and DC removal (counterpart of `wavespec_tpu/ops/detrend.py`):
+the Ehlers one-pole high-pass as blocked lower-triangular Toeplitz
+products (`ehlers_highpass_detrend_mxu`), its per-row form, the leaky and
+mean DC removal, and the least-squares linear detrend.
 
 ``trend[t] = c*(p[t] + p[t-1]) + alpha*trend[t-1]`` (seeded with
 ``p[-1] = p[0]``, ``trend[-1] = 0``) has a constant coefficient, so over a
@@ -9,12 +11,23 @@ the block end values satisfy a block-level recurrence with coefficient
 ``alpha^block`` (the ``T`` table). The grouping is the JAX package's, so
 the two agree to about 1e-6 relative.
 
+The JAX package's scan form, `ehlers_highpass_detrend`, is the same
+filter evaluated by an associative scan. The port evaluates it with the
+blocked products at one period too: both are float32 evaluations of one
+recurrence and agree to ~1e-6 relative (`tests/test_torch_ops.py::
+test_highpass_matches_jax` accepts that), and the products are a few
+GEMMs where a scan over [windows, n] would be log2(n) passes of small
+elementwise launches on the card. The leaky DC tracker of `remove_dc` is
+a recurrence of the same kind and takes the same tables.
+
 `HighpassMXU` keeps the tables as module buffers built in float64 numpy
 and cast to its dtype (float32, as `_hp_mxu_tables` does, unless asked
 for float64).
 """
 
 from __future__ import annotations
+
+import enum
 
 import numpy as np
 import torch
@@ -30,6 +43,12 @@ def _hp_mxu_tables(periods, block: int, nblk: int, dtype=np.float32):
     w64 = 2.0 * np.pi / np.asarray(periods, np.float64)
     alpha = (1.0 - np.sin(w64)) / np.cos(w64)
     c = ((1.0 - alpha) / 2.0).astype(dtype)
+    return (c, *_recurrence_tables(alpha, block, nblk, dtype))
+
+
+def _recurrence_tables(alpha: np.ndarray, block: int, nblk: int, dtype=np.float32):
+    """(A, T, apow) of `_hp_mxu_tables` for the recurrences
+    ``y[t] = alpha[r] y[t-1] + b[t]``, from float64 `alpha [R]`."""
     idx = np.arange(block)
     e_in = idx[:, None] - idx[None, :]
     a_tbl = np.where(
@@ -43,7 +62,7 @@ def _hp_mxu_tables(periods, block: int, nblk: int, dtype=np.float32):
             e_c >= 0, ab[:, None, None] ** np.maximum(e_c, 0)[None], 0.0
         ).astype(dtype)
         apow = (alpha[:, None] ** np.arange(1, block + 1)[None]).astype(dtype)
-    return c, a_tbl, t_tbl, apow
+    return a_tbl, t_tbl, apow
 
 
 def _hp_mxu_solve(b: torch.Tensor, a_tbl: torch.Tensor, t_tbl: torch.Tensor,
@@ -89,14 +108,20 @@ class HighpassMXU(nn.Module):
         return self.t_tbl[:, :nblk, :nblk]
 
     def forward(self, price: torch.Tensor) -> torch.Tensor:
-        length = price.shape[-1]
+        return self.rows(price[..., None, :].expand(
+            *price.shape[:-1], len(self.periods), price.shape[-1]))
+
+    def rows(self, rows: torch.Tensor) -> torch.Tensor:
+        """Row r of ``[..., R, L]`` filtered at ``periods[r]`` (the
+        counterpart of `ehlers_highpass_detrend_rows_mxu`)."""
+        length = rows.shape[-1]
         nblk = -(-length // self.block)
-        price = price.to(self.a_tbl.dtype)
-        prev = torch.cat([price[..., :1], price[..., :-1]], dim=-1)
-        b = self.c[:, None] * (price[..., None, :] + prev[..., None, :])
+        rows = rows.to(self.a_tbl.dtype)
+        prev = torch.cat([rows[..., :1], rows[..., :-1]], dim=-1)
+        b = self.c[:, None] * (rows + prev)
         trend = _hp_mxu_solve(b, self.a_tbl, self._carry_table(nblk),
                               self.apow, nblk, self.block, length)
-        return price[..., None, :] - trend
+        return rows - trend
 
 
 def ehlers_highpass_detrend_mxu(price: torch.Tensor,
@@ -106,3 +131,66 @@ def ehlers_highpass_detrend_mxu(price: torch.Tensor,
     float64 for a float64 `price` and in float32 otherwise."""
     dtype = torch.float64 if price.dtype == torch.float64 else torch.float32
     return HighpassMXU(periods, block, dtype).to(price.device)(price)
+
+
+def ehlers_highpass_detrend(price: torch.Tensor, trend_period: int = 1024) -> torch.Tensor:
+    """One-pole high-pass detrend ``price - trend`` along the last axis at
+    `trend_period` (counterpart of the JAX package's scan form; the
+    blocked products, see the module docstring)."""
+    return ehlers_highpass_detrend_mxu(price, (trend_period,))[..., 0, :]
+
+
+def ehlers_highpass_detrend_rows_mxu(rows: torch.Tensor, periods: tuple[int, ...],
+                                     block: int = BLOCK) -> torch.Tensor:
+    """Row r of ``[..., R, L]`` filtered at ``periods[r]``, in float64 for a
+    float64 input and in float32 otherwise."""
+    dtype = torch.float64 if rows.dtype == torch.float64 else torch.float32
+    return HighpassMXU(periods, block, dtype).to(rows.device).rows(rows)
+
+
+class DcMode(enum.IntEnum):
+    """`gpu_remove_dc_time_series` mode ids (mode 0 = mean removal)."""
+
+    MEAN = 0
+    LEAKY = 1
+
+
+def remove_dc(data: torch.Tensor, mode: DcMode | int = DcMode.MEAN,
+              alpha: float = 0.98) -> torch.Tensor:
+    """DC removal along the last axis. MEAN: subtract the mean. LEAKY:
+    subtract the one-pole tracker ``dc[t] = alpha dc[t-1] + (1 - alpha)
+    x[t]`` (``dc[-1] = 0``), solved by the blocked products."""
+    mode = DcMode(int(mode))
+    if mode == DcMode.MEAN:
+        return data - data.mean(dim=-1, keepdim=True)
+    np_dtype = np.float64 if data.dtype == torch.float64 else np.float32
+    length = data.shape[-1]
+    nblk = -(-length // BLOCK)
+    a_tbl, t_tbl, apow = (torch.from_numpy(t).to(data.device) for t in _recurrence_tables(
+        np.array([alpha], np.float64), BLOCK, nblk, np_dtype))
+    b = ((1.0 - alpha) * data)[..., None, :]
+    dc = _hp_mxu_solve(b, a_tbl, t_tbl, apow, nblk, BLOCK, length)[..., 0, :]
+    return data - dc
+
+
+def _centred_time(data: torch.Tensor):
+    n = data.shape[-1]
+    t_mean = (n - 1) / 2.0
+    tc = torch.arange(n, dtype=data.dtype, device=data.device) - t_mean
+    return tc, t_mean, (tc * tc).sum()
+
+
+def linear_detrend(data: torch.Tensor) -> torch.Tensor:
+    """Least-squares linear detrend along the last axis (centred moments)."""
+    tc, _, denom = _centred_time(data)
+    x_mean = data.mean(dim=-1, keepdim=True)
+    slope = (data * tc).sum(dim=-1, keepdim=True) / denom
+    return data - x_mean - slope * tc
+
+
+def linear_trend_fit(data: torch.Tensor):
+    """(intercept, slope) of the least-squares line along the last axis."""
+    tc, t_mean, denom = _centred_time(data)
+    x_mean = data.mean(dim=-1)
+    slope = (data * tc).sum(dim=-1) / denom
+    return x_mean - slope * t_mean, slope

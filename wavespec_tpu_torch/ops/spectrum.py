@@ -30,6 +30,31 @@ def band_indices(n: int, min_period: float, max_period: float) -> tuple[int, int
     return k_min, k_max
 
 
+def band_mask(n: int, min_period: float, max_period: float,
+              dtype: torch.dtype = torch.float32,
+              device: torch.device | str | None = None) -> torch.Tensor:
+    """``[n // 2]`` 0/1 mask of the candidate band."""
+    k_min, k_max = band_indices(n, min_period, max_period)
+    k = torch.arange(n // 2, device=device)
+    return ((k >= k_min) & (k <= k_max)).to(dtype)
+
+
+def topk_cycles(spectrum: torch.Tensor, *, n: int, top_k: int = 8,
+                min_period: float = 18.0, max_period: float = 200.0):
+    """The `top_k` strongest in-band bins of a power spectrum
+    ``[..., n // 2]``: (indices int32, powers, periods n / k), equal powers
+    in index order (`jax.lax.top_k`'s rule); slots past the in-band bins
+    get power 0 and period 0."""
+    from wavespec_tpu_torch.analyze.music import topk_stable
+
+    mask = band_mask(n, min_period, max_period, spectrum.dtype, spectrum.device)
+    masked = torch.where(mask > 0, spectrum, 0.0)
+    powers, idx = topk_stable(masked, top_k)
+    periods = n / torch.clamp(idx.to(spectrum.dtype), min=1.0)
+    periods = torch.where(powers > 0, periods, 0.0)
+    return idx.to(torch.int32), powers, periods
+
+
 def rfft_band(windows: torch.Tensor, max_bins: int) -> torch.Tensor:
     """Complex bins ``[0, max_bins)`` of the rFFT of real ``windows [..., n]``."""
     return torch.fft.rfft(windows, dim=-1)[..., :max_bins]
@@ -67,3 +92,15 @@ def band_dft_plain(windows: torch.Tensor, n_bins: int) -> torch.Tensor:
     basis = _dft_basis(n, n_bins, windows.device)
     out = windows.reshape(-1, n) @ basis
     return torch.view_as_complex(out.reshape(*windows.shape[:-1], n_bins, 2))
+
+
+def framed_spectrum(windows: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Complex bins ``[0, n_bins)`` of each window ``[..., n]``: kernel B3
+    (`kernels.band_dft.band_dft`) for float32 windows, on the card, or its
+    plain version on the CPU; a float64 DFT for float64 windows (CPU
+    only: the kernel takes float32)."""
+    if windows.dtype == torch.float64:
+        return torch.fft.rfft(windows, dim=-1)[..., :n_bins]
+    from wavespec_tpu_torch.kernels.band_dft import band_dft
+
+    return band_dft(windows.to(torch.float32).contiguous(), n_bins)

@@ -49,3 +49,17 @@ def window_coefficients(n: int, window_type: WindowType | int,
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     coeffs = _window_np(n, WindowType(int(window_type))).astype(np_dtype)
     return torch.from_numpy(coeffs).to(device)
+
+
+def coherent_gain(n: int, window_type: WindowType | int) -> float:
+    """Mean of the taper coefficients (a host float): scales |X_k| back to
+    the sinusoid's amplitude, amp = 2|X_k| / (n cg)."""
+    if n <= 1:
+        return 1.0
+    return float(_window_np(n, WindowType(int(window_type))).mean())
+
+
+def apply_window(data: torch.Tensor, window_type: WindowType | int) -> torch.Tensor:
+    """``data`` tapered along its last axis (batch dims broadcast)."""
+    w = window_coefficients(data.shape[-1], window_type, data.dtype, data.device)
+    return data * w

@@ -207,6 +207,13 @@ def run_v757_batch(series_batch, cfg: V757Config = V757Config(), hop: int = 1,
         raise ValueError(f"series of {x.shape[-1]} bars is shorter than the window {cfg.window}")
     if hop < 1:
         raise ValueError(f"hop must be >= 1, got {hop}")
+    if x.is_cuda:
+        # the kernels' size limits, named before any work
+        from wavespec_tpu_torch.kernels.tracker import check_config
+        from wavespec_tpu_torch.kernels.v757_tail import slots_per_lane
+
+        check_config(cfg.tracker)
+        slots_per_lane(cfg.tracker.n_slots)
     with torch.no_grad():
         if symbol_chunk and x.shape[0] > symbol_chunk:
             parts = [_v757_batch(x[lo:lo + symbol_chunk], cfg, hop)
