@@ -9,7 +9,10 @@ For the shapes of `chip_smoke.py` (same configurations, same planted
 series): the flagship MUSIC step (`extract_cycles_batch` +
 `decode_causal`) at (a) hop 64, 512 windows and (b) hop 1, 20,000
 windows, the v7.57 analytics (`run_v757_batch`) at (c) 128 symbols x
-512 frames, window 4096, FFT ridge at `bench.py`'s framed cell (d)
+512 frames, window 4096, on the framed route and (g) the sliding one, a
+one-bar tick of `V757OnlineDriver` at (h) 128 and 1024 symbols (the
+default branch: framed at 128, sliding at 1024; at 1024 also the framed
+branch; after 201 frames), FFT ridge at `bench.py`'s framed cell (d)
 (window 4096, top_k 8, band [18, 200], hop 16, 4096 windows), and ESPRIT
 and AUTO at the flagship configuration (f) (hop 64, 512 windows). Per
 shape it warms the step up, times `repeats`
@@ -80,11 +83,35 @@ def main() -> None:
                           method=Method.FFT_RIDGE)
     xc = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES)).to(dev)
     vcfg = V757Config()
+
+    def online_tick(n_sym, sliding_spectral=None):
+        """One one-bar tick of a warmed `V757OnlineDriver` fleet, each call
+        the next bar of `bench.py`'s series."""
+        from wavespec_tpu_torch.pipeline.online import V757OnlineDriver
+
+        bars = bench_series(n_sym, V757_FRAMES)
+        drv = V757OnlineDriver(V757Config(resumable=True, sliding_spectral=sliding_spectral),
+                               batch=n_sym)
+        drv.update(bars[:, :WINDOW + 200])
+        pos = iter(range(WINDOW + 200, bars.shape[1]))
+
+        def tick():
+            i = next(pos)
+            return drv.update(bars[:, i:i + 1])
+        return tick
     shapes = {
         "a": ("MUSIC step, hop 64, 512 windows", music_step(64, 512, SEED)),
         "b": ("MUSIC step, hop 1, 20000 windows", music_step(1, 20000, SEED + 1)),
         "c": (f"run_v757_batch, {V757_SYMBOLS} symbols x {V757_FRAMES} frames, window "
               f"{WINDOW}", lambda: run_v757_batch(xc, vcfg)),
+        "g": (f"run_v757_batch, sliding route, {V757_SYMBOLS} symbols x {V757_FRAMES} frames, "
+              f"window {WINDOW}", lambda: run_v757_batch(xc, V757Config(sliding_spectral=True))),
+        "h": (f"V757OnlineDriver one-bar tick, {V757_SYMBOLS} symbols, window {WINDOW}",
+              online_tick(V757_SYMBOLS)),
+        "h-1024": (f"V757OnlineDriver one-bar tick, {8 * V757_SYMBOLS} symbols, window {WINDOW}",
+                   online_tick(8 * V757_SYMBOLS)),
+        "h-1024-framed": (f"V757OnlineDriver one-bar tick, framed branch, {8 * V757_SYMBOLS} "
+                          f"symbols, window {WINDOW}", online_tick(8 * V757_SYMBOLS, False)),
         "d": ("FFT ridge (framed), window 4096, top_k 8, band [18, 200], hop 16, 4096 windows",
               extract_step(ridge, 16, 4096, SEED + 10)),
         "f-esprit": ("ESPRIT, flagship configuration, hop 64, 512 windows",

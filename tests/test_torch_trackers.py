@@ -4,7 +4,9 @@ scan) and its Pallas kernel in interpret mode, on the same numpy
 candidate streams: all 11 per-frame outputs and the final state equal,
 at J = 24 and at an all-bins J above one Pallas slab, for a symbol batch,
 on tie-heavy streams (the stream `chip_smoke.py` holds kernel B4 to its
-plain version on) at 1, 12 and 32 slots, and across a resume split.
+plain version on) at 1, 12 and 32 slots, and across a resume split; the
+reference-exact sequential matcher likewise; and the block-resumable
+Ehlers filter of the resumable v7.57 stage.
 """
 
 import dataclasses
@@ -17,6 +19,7 @@ import torch
 from wavespec_tpu.analyze import trackers as jtr
 from wavespec_tpu.kernels.tracker_pallas import track_frames_pallas
 from wavespec_tpu_torch.analyze import trackers as ptr
+from wavespec_tpu_torch import testing
 from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
 # near-tolerance neighbours, dropouts, power inversions and short leak
 # periods (as tests/test_trackers.py); `ties=True` for the tie-heavy stream
@@ -93,10 +96,112 @@ def test_resume_from_jax_state_matches_jax():
     assert_same(got, gstate, tail, jax_state_np(wstate))
 
 
-def test_sequential_match_is_not_ported():
-    frames = [torch.from_numpy(f) for f in candidate_stream(3, 4, 0)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        ptr.track_frames(*frames, ptr.TrackerConfig(sequential_match=True))
+@pytest.fixture
+def one_thread():
+    with testing.one_thread():
+        yield
+
+
+SEQUENTIAL_CASES = {
+    # (t, j, seed, batch, capacity, ties)
+    "j10": (40, 10, 21, (), 64, False),
+    "ties": (40, 24, 22, (), 16, True),
+    "batch_all_bins": (16, 41, 23, (2,), 32, False),
+}
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("case", list(SEQUENTIAL_CASES))
+def test_sequential_match_matches_jax(case):
+    """The reference-exact matcher (`sequential_match=True`): every output
+    and the final state equal to the JAX package's XLA scan, one shot and
+    resumed from a split (also from a state the JAX package handed over)."""
+    t, j, seed, batch, cap, ties = SEQUENTIAL_CASES[case]
+    frames = candidate_stream(t, j, seed, batch, ties=ties)
+    jcfg = jtr.TrackerConfig(capacity=cap, sequential_match=True)
+    want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
+    pcfg = ptr.TrackerConfig(**dataclasses.asdict(jcfg))
+    tensors = [torch.from_numpy(f) for f in frames]
+    got, gstate = ptr.track_frames(*tensors, pcfg)
+    assert_same(got, gstate, want, jax_state_np(wstate))
+    cut = t // 2 + 1
+    o1, s1 = ptr.track_frames(*(f[..., :cut, :] for f in tensors), pcfg)
+    o2, s2 = ptr.track_frames(*(f[..., cut:, :] for f in tensors), pcfg, init=s1)
+    assert_same({k: torch.cat([o1[k], o2[k]], dim=-2) for k in o1}, s2, want,
+                jax_state_np(wstate))
+    if not batch:
+        _, js1 = jtr.track_frames(*(jnp.asarray(f[:cut]) for f in frames), cfg=jcfg)
+        o3, s3 = ptr.track_frames(*(f[cut:] for f in tensors), pcfg,
+                                  init=ptr.TrackerState(*(torch.from_numpy(np.array(v))
+                                                          for v in js1)))
+        assert_same(o3, s3, {k: np.asarray(v)[cut:] for k, v in want.items()},
+                    jax_state_np(wstate))
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_sequential_match_differs_from_the_vectorized_one():
+    """In-frame period drag: a candidate matches the tracker an earlier
+    candidate of the same frame just moved, so the two matchers part
+    (the JAX package's own divergence, `tests/test_v757_oracle.py`)."""
+    frames = [torch.from_numpy(f) for f in candidate_stream(40, 24, 22, ties=True)]
+    seq, _ = ptr.track_frames(*frames, ptr.TrackerConfig(capacity=16, sequential_match=True))
+    vec, _ = ptr.track_frames(*frames, ptr.TrackerConfig(capacity=16))
+    assert not all(torch.equal(seq[k], vec[k]) for k in seq)
+
+
+def test_the_kernel_refuses_the_sequential_matcher_on_the_card():
+    """B4 implements the vectorized matcher only: its wrapper refuses a
+    sequential config for a CUDA tensor (checked before any launch, so a
+    tensor that claims to be on CUDA is enough); on the CPU it takes the
+    plain version, as `track_frames` does."""
+    frames = [torch.from_numpy(f) for f in candidate_stream(5, 4, 1)]
+    cfg = ptr.TrackerConfig(capacity=16, sequential_match=True)
+    out, _ = track_frames_kernel(*frames, cfg)
+    assert torch.equal(out["slot_uid"], ptr.track_frames(*frames, cfg)[0]["slot_uid"])
+
+    class OnCard:
+        is_cuda = True
+
+    with pytest.raises(ValueError, match="vectorized matcher only"):
+        track_frames_kernel(OnCard(), *frames[1:], cfg)
+
+
+@pytest.mark.parametrize("period", [128, 1024])
+def test_ehlers_highpass_blocked_matches_jax(period):
+    """The block-resumable Ehlers filter against the JAX package's blocked
+    filter and its scan form, to ~1e-6 relative; a symbol batch and a
+    partial last block."""
+    from wavespec_tpu.ops import detrend as jdt
+    from wavespec_tpu_torch.ops.detrend import ehlers_highpass_blocked
+
+    rng = np.random.default_rng(period)
+    x = (100 + np.cumsum(rng.standard_normal((3, 1000)), axis=-1)).astype(np.float32)
+    got = ehlers_highpass_blocked(torch.from_numpy(x), period).numpy()
+    for want in (jdt.ehlers_highpass_blocked(jnp.asarray(x), period),
+                 jdt.ehlers_highpass_detrend(jnp.asarray(x), period)):
+        want = np.asarray(want)
+        assert np.abs(got - want).max() / np.abs(want).max() < 2e-6
+
+
+def test_ehlers_highpass_blocked_resumes_bitwise():
+    """Resumed at any block boundary from the returned carry, one block at
+    a time included, the filter equals the one-shot run bitwise."""
+    from wavespec_tpu_torch.ops.detrend import ehlers_highpass_blocked
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy((100 + np.cumsum(rng.standard_normal((2, 900)), -1)).astype(np.float32))
+    want = ehlers_highpass_blocked(x, 256)
+    for cuts in ([128], [384], [128, 256, 384, 512, 640, 768]):
+        parts, carry, lo = [], None, 0
+        for hi in cuts:
+            hp, carry = ehlers_highpass_blocked(x[:, lo:hi], 256, carry=carry,
+                                                return_carry=True)
+            parts.append(hp)
+            lo = hi
+        parts.append(ehlers_highpass_blocked(x[:, lo:], 256, carry=carry))
+        assert torch.equal(torch.cat(parts, dim=-1), want), cuts
+    with pytest.raises(ValueError, match="block-multiple"):
+        ehlers_highpass_blocked(x[:, :100], 256, return_carry=True)
 
 
 def test_cpu_tensors_take_the_plain_version():

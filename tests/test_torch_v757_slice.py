@@ -24,9 +24,11 @@ import pytest
 import torch
 
 from test_v757_batch import EXACT, make_batch
+from wavespec_tpu.analyze import trackers as jtr
 from wavespec_tpu.analyze.eta import EtaMode
 from wavespec_tpu.pipeline import v757 as jv
 import wavespec_tpu_torch as port
+from wavespec_tpu_torch import testing
 from wavespec_tpu_torch.kernels.band_dft import band_dft
 from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
 from wavespec_tpu_torch.kernels.v757_tail import v757_tail
@@ -123,15 +125,64 @@ def test_numpy_input_goes_to_the_card_by_default():
     assert pv._as_series(x, "cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(sliding_spectral=True), "A10"),
-    (dict(resumable=True), "A11"),
-    (dict(tracker=port.pipeline.v757.TrackerConfig(sequential_match=True)), "A10"),
-])
-def test_unported_options_raise(kw, item):
-    cfg = dataclasses.replace(pv.V757Config(window=256, trend_period=128), **kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port.run_v757_batch(make_batch(1, 300), cfg, device="cpu")
+@pytest.fixture
+def one_thread():
+    with testing.one_thread():
+        yield
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("kw", [
+    dict(sliding_spectral=True),
+    dict(resumable=True),
+    dict(resumable=True, sliding_spectral=True),
+    dict(n_candidates=0, tracker=jtr.TrackerConfig(sequential_match=True)),
+], ids=["sliding_spectral", "resumable", "resumable_sliding", "sequential_match"])
+def test_ported_options_run(kw):
+    """The three options that raised until the live v7.57 path was ported
+    run on the CPU at window 256 and match the JAX package; the resumable
+    stage on both of its branches (framed, and the pinned sliding DFT with
+    the block-form Ehlers correction)."""
+    jcfg = dataclasses.replace(CONFIGS["default"], **kw)
+    x = make_batch(2, jcfg.window + 140, seed=7)
+    want = jv.run_v757_batch(x, jcfg, hop=1)
+    got = port.run_v757_batch(x, port.config_from_dict(dataclasses.asdict(jcfg)), device="cpu")
+    assert got["slot_valid"].any()
+    assert_slice_matches(got, want, jcfg)
+
+
+def test_sliding_route_default_follows_device_stage_and_rows():
+    """`sliding_spectral=None`: the sliding route only for the resumable
+    stage on the card from `SLIDING_MIN_ROWS` series; an explicit True or
+    False holds everywhere, and the route never applies where its
+    conditions fail."""
+    cpu, card = torch.device("cpu"), torch.device("cuda")
+    big, small = pv.SLIDING_MIN_ROWS, pv.SLIDING_MIN_ROWS - 1
+    default, res = pv.V757Config(), pv.V757Config(resumable=True)
+    assert [pv._use_sliding(c, 1, d, n) for c in (default, res) for d in (cpu, card)
+            for n in (small, big)] == [False] * 6 + [False, True]
+    for flag in (True, False):
+        for c in (default, res):
+            for d in (cpu, card):
+                for n in (1, big):
+                    assert pv._use_sliding(dataclasses.replace(c, sliding_spectral=flag), 1, d,
+                                           n) is flag
+    for bad in (dict(taper=pv.WindowType.BARTLETT), dict(detrend=pv.DetrendMode.LINEAR)):
+        for flag in (None, True):
+            assert not pv._use_sliding(dataclasses.replace(res, sliding_spectral=flag, **bad),
+                                       1, card, big)
+    assert not pv._use_sliding(dataclasses.replace(res, sliding_spectral=True), 2, card, big)
+    assert pv._rows(torch.zeros(3, 4, 10)) == 12 and pv._rows(torch.zeros(10)) == 1
+
+
+def test_config_from_dict_carries_the_live_path_options():
+    jcfg = jv.V757Config(resumable=True, sliding_spectral=True, n_candidates=0,
+                         tracker=jtr.TrackerConfig(capacity=128, sequential_match=True))
+    pcfg = port.config_from_dict(dataclasses.asdict(jcfg))
+    assert isinstance(pcfg, pv.V757Config)
+    assert dataclasses.asdict(pcfg) == dataclasses.asdict(jcfg)
+    assert pcfg.resumable and pcfg.sliding_spectral and pcfg.tracker.sequential_match
+    assert pcfg.tracker.capacity == 128
 
 
 def test_bad_shapes_raise():
@@ -145,7 +196,8 @@ def test_bad_shapes_raise():
 def test_import_never_loads_jax():
     code = ("import sys, wavespec_tpu_torch, wavespec_tpu_torch.pipeline.v757, "
             "wavespec_tpu_torch.kernels.band_dft, wavespec_tpu_torch.kernels.tracker, "
-            "wavespec_tpu_torch.kernels.v757_tail; "
+            "wavespec_tpu_torch.kernels.v757_tail, wavespec_tpu_torch.kernels.sliding_dft, "
+            "wavespec_tpu_torch.pipeline.online; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'wavespec_tpu' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

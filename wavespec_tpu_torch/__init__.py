@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of wavespec_tpu: cycle extraction by FFT ridge, MUSIC,
-ESPRIT and AUTO (rolling batch and single window), the causal decode, and
-the v7.57 multi-symbol analytics, with hand-written CUDA kernels for the
-Jacobi eigh, the MUSIC candidate selection, the band DFT, the trackers
+ESPRIT and AUTO (rolling batch and single window), the causal decode, the
+v7.57 multi-symbol analytics and their live online driver
+(`pipeline.online.V757OnlineDriver`), with hand-written CUDA kernels for
+the Jacobi eigh, the MUSIC candidate selection, the band DFT, the trackers
 and the v7.57 tail. Imports torch and numpy, never jax."""
 
 from wavespec_tpu_torch.extract import (

@@ -1,6 +1,6 @@
 """Persistent period trackers, stable slots and leakage detection
-(counterpart of `wavespec_tpu/analyze/trackers.py`, the vectorized
-matcher).
+(counterpart of `wavespec_tpu/analyze/trackers.py`): the vectorized
+matcher, and the reference-exact sequential one.
 
 Per frame, every candidate matches the closest eligible tracker within
 the period tolerance (first row on ties), every tracker keeps its
@@ -31,7 +31,8 @@ IMAX = 2**31 - 1
 @dataclasses.dataclass(frozen=True)
 class TrackerConfig:
     """The same fields and defaults as `wavespec_tpu.analyze.trackers.
-    TrackerConfig`. `sequential_match=True` is not ported (ROADMAP A10)."""
+    TrackerConfig`; `sequential_match=True` takes the reference-exact
+    matcher (`_sequential_match_update`)."""
 
     capacity: int = 64
     n_slots: int = 12
@@ -104,6 +105,8 @@ def _sum_i32(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
 def tracker_step(state: TrackerState, frame, cfg: TrackerConfig):
     """Advance one frame. frame = (periods, powers, fft_idx, valid), each
     ``[..., J]``. Returns (new state, dict of ``[..., S]`` slot outputs)."""
+    if cfg.sequential_match:
+        return _slots_and_leaks(state, cfg, *_sequential_match_update(state, frame, cfg))
     cand_period, cand_power, cand_fft, cand_valid = frame
     c, j = cfg.capacity, cand_period.shape[-1]
     rows = torch.arange(c, device=cand_period.device)
@@ -141,6 +144,58 @@ def tracker_step(state: TrackerState, frame, cfg: TrackerConfig):
     uid = torch.where(is_new, state.next_uid[..., None] + dead_rank, state.uid)
     next_uid = state.next_uid + _sum_i32(is_new)
     alive = state.alive | is_new
+
+    return _slots_and_leaks(state, cfg, period, power, fft_index, alive, seen, uid, next_uid)
+
+
+def _sequential_match_update(state: TrackerState, frame, cfg: TrackerConfig):
+    """The reference-exact matcher (`wavespec_tpu/analyze/trackers.py::
+    _sequential_match_update`, the reference's `:3530-3551`): candidates in
+    order, each matching the closest currently eligible tracker within the
+    tolerance (ties to the smallest uid, the reference's first array
+    index) and updating it at once, so later candidates of the frame see
+    the update; an unmatched candidate takes the first dead row (dropped
+    when none is left). A loop over the J candidates, vectorized over the
+    leading dims. Returns (period, power, fft_index, alive, seen, uid,
+    next_uid)."""
+    cand_period, cand_power, cand_fft, cand_valid = frame
+    period, power, fft_index = state.period, state.power, state.fft_index
+    alive, uid, next_uid, bi = state.alive, state.uid, state.next_uid, state.bars_inactive
+    seen = torch.zeros_like(alive)
+    rows = torch.arange(cfg.capacity, device=period.device)
+    for j in range(cand_period.shape[-1]):
+        p, pw = cand_period[..., j, None], cand_power[..., j, None]
+        fi, ok = cand_fft[..., j, None], cand_valid[..., j, None] & (p > 0)
+        diff = (period - p).abs()
+        avg = 0.5 * (period + p)
+        pct = torch.where(avg > 0, diff / avg.clamp(min=1e-30) * 100.0, BIG)
+        within = alive & (bi == 0) & ok & (period > 0) & (pct <= cfg.tolerance_pct)
+        cost = torch.where(within, diff, BIG)
+        min_cost = cost.min(dim=-1, keepdim=True).values
+        matched = min_cost < BIG
+        best = _first_argmin(torch.where(within & (cost <= min_cost), uid, IMAX))[1]
+        hit = matched & (rows == best[..., None])
+        dead = ~alive
+        can_alloc = ~matched & ok & dead.any(dim=-1, keepdim=True)
+        make = can_alloc & (rows == _first_argmin((~dead).to(torch.int32))[1][..., None])
+        touch = hit | make
+        period = torch.where(touch, p, period)
+        power = torch.where(touch, pw, power)
+        fft_index = torch.where(touch, fi, fft_index)
+        seen = seen | touch
+        alive = alive | make
+        bi = torch.where(touch, 0, bi)
+        uid = torch.where(make, next_uid[..., None], uid)
+        next_uid = next_uid + can_alloc[..., 0].to(torch.int32)
+    return period, power, fft_index, alive, seen, uid, next_uid
+
+
+def _slots_and_leaks(state: TrackerState, cfg: TrackerConfig, period, power, fft_index,
+                     alive, seen, uid, next_uid):
+    """Deactivation, stable slots and leaks after a frame's matching (both
+    matchers): returns (new state, dict of ``[..., S]`` slot outputs)."""
+    c = cfg.capacity
+    rows = torch.arange(c, device=period.device)
 
     # ---- deactivate unseen; kill after max_inactive ----
     bars_inactive = torch.where(seen, 0, state.bars_inactive + 1)
@@ -232,12 +287,16 @@ def track_frames(cand_periods, cand_powers, cand_fft_idx, cand_valid,
     powers float32, fft indices int32, valid bool); returns (dict of
     ``[..., T, S]`` slot outputs, final `TrackerState`). `init` resumes
     from a prior call's final state: chunked runs equal the one-shot run
-    bitwise. Kernel B4 for CUDA tensors, `track_frames_plain` on the CPU.
+    bitwise. Kernel B4 for CUDA tensors, `track_frames_plain` on the CPU;
+    the reference-exact matcher (`sequential_match`) is a loop of plain
+    PyTorch over each frame's candidates on every device, as the JAX
+    package keeps its XLA scan for it (B4 implements the vectorized
+    matcher only).
     """
     from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
 
     if cfg.sequential_match:
-        raise NotImplementedError(
-            "TrackerConfig(sequential_match=True) is not ported yet (ROADMAP A10)")
+        return track_frames_plain(cand_periods, cand_powers, cand_fft_idx, cand_valid,
+                                  cfg, init)
     return track_frames_kernel(cand_periods, cand_powers, cand_fft_idx,
                                cand_valid, cfg, init)

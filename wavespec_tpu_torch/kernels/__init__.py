@@ -1,1 +1,2 @@
-"""Wrappers of the hand-written CUDA kernels (sources in `csrc/`)."""
+"""Wrappers of the hand-written CUDA kernels (sources in `csrc/`), and the
+sliding band DFT (`sliding_dft`, plain PyTorch)."""

@@ -88,6 +88,9 @@ def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
     """(dict of ``[..., T, S]`` slot outputs, final `TrackerState`)."""
     if not periods.is_cuda:
         return track_frames_plain(periods, powers, fft_idx, valid, cfg, init)
+    if cfg.sequential_match:
+        raise ValueError("the tracker kernel implements the vectorized matcher only; "
+                         "sequential_match runs as plain PyTorch (analyze.trackers.track_frames)")
 
     lead, (t_frames, j) = tuple(periods.shape[:-2]), tuple(periods.shape[-2:])
     c, s = cfg.capacity, cfg.n_slots

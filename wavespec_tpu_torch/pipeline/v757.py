@@ -1,21 +1,30 @@
 """The v7.57 full analytics over a batch of symbols (counterpart of
-`wavespec_tpu/pipeline/v757.py`, the framed spectral route):
+`wavespec_tpu/pipeline/v757.py`):
 
-  per frame: trend high-pass (per-window cold start) -> taper -> band
-  DFT (kernel B3) -> power -> candidates -> group delay -> trackers,
-  stable slots and leaks (kernel B4) -> biquad reconstruction, ETA and
-  color, FollowFirst, Kalman 4D (kernel B5) -> leak ETA.
+  per frame: trend high-pass -> taper -> band spectrum -> power ->
+  candidates -> group delay -> trackers, stable slots and leaks (kernel
+  B4, or the reference-exact sequential matcher) -> biquad
+  reconstruction, ETA and color, FollowFirst, Kalman 4D (kernel B5) ->
+  leak ETA.
+
+The band spectra take one of three routes (`_band_spectra`): the
+framed route (per-window cold-start high-pass, taper, band DFT by kernel
+B3), the chunked sliding DFT (`kernels/sliding_dft.py`, hop 1, EHLERS or
+NONE detrend, a cosine-sum taper; the per-window cold start enters as a
+rank-1 correction), and the resumable route (`V757Config.resumable`):
+canonical blocks of `FRAME_BLOCK` frames, each computed alone with fixed
+operand shapes on a block-resumable high-pass, which the online driver
+(`pipeline/online.py`) recomputes tick by tick and equals bitwise.
 
 `run_v757_batch` and `run_v757` are the entry points. They run on the
 card unless the caller passes ``device="cpu"`` (or a CPU tensor); on the
-CPU every kernel's plain version runs. The spectral stage always takes
-the framed route; the chunked sliding DFT, the resumable mode and the
-sequential tracker matcher are not ported and raise.
+CPU every kernel's plain version runs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -26,8 +35,12 @@ from wavespec_tpu_torch.analyze.trackers import TrackerConfig, track_frames
 from wavespec_tpu_torch.extract import DetrendMode, frame_highpassed, frame_series
 from wavespec_tpu_torch.filters.kalman4d import Kalman4DConfig
 from wavespec_tpu_torch.kernels.band_dft import band_dft
+from wavespec_tpu_torch.kernels.sliding_dft import (_fresh, sliding_band_spec, taper_harmonics,
+                                                    tapered_dft_of)
 from wavespec_tpu_torch.kernels.v757_tail import v757_tail
 from wavespec_tpu_torch.ops.arith import rdiv, sdiv
+from wavespec_tpu_torch.ops.detrend import (_ehlers_consts, ehlers_highpass_blocked,
+                                            ehlers_highpass_detrend)
 from wavespec_tpu_torch.ops.phase import GROUP_DELAY_CLAMP, _wrap_principal, fft_phase
 from wavespec_tpu_torch.ops.spectrum import band_indices
 from wavespec_tpu_torch.ops.windows import WindowType, window_coefficients
@@ -37,9 +50,14 @@ from wavespec_tpu_torch.signals.followfirst import FollowFirstConfig
 @dataclasses.dataclass(frozen=True)
 class V757Config:
     """The same fields and defaults as `wavespec_tpu.pipeline.v757.
-    V757Config` (the `...pla-kalman.mq5` inputs). `sliding_spectral=True`
-    (ROADMAP A10) and `resumable=True` (A11) are not ported; None and
-    False take the framed route."""
+    V757Config` (the `...pla-kalman.mq5` inputs).
+
+    `sliding_spectral`: True takes the chunked sliding DFT wherever it
+    applies (hop 1, EHLERS or NONE detrend, a cosine-sum taper), False the
+    framed route; None lets `_use_sliding` choose from the device, the
+    stage and the number of series. `resumable`: the block-canonical
+    spectral stage of the online driver (hop 1 only).
+    """
 
     window: int = 4096
     min_period: float = 18.0
@@ -61,17 +79,6 @@ class V757Config:
     followfirst: FollowFirstConfig = FollowFirstConfig()
 
 
-def _require_ported(cfg: V757Config) -> None:
-    if cfg.sliding_spectral:
-        raise NotImplementedError(
-            "sliding_spectral=True (the chunked sliding DFT) is not ported yet (ROADMAP A10)")
-    if cfg.resumable:
-        raise NotImplementedError("resumable=True is not ported yet (ROADMAP A11)")
-    if cfg.tracker.sequential_match:
-        raise NotImplementedError(
-            "TrackerConfig(sequential_match=True) is not ported yet (ROADMAP A10)")
-
-
 def _gd_lo(cfg: V757Config) -> int:
     """First absolute bin of the band-sliced group-delay arrays."""
     k_min, _ = band_indices(cfg.window, cfg.min_period, cfg.max_period)
@@ -85,17 +92,160 @@ def _n_bins(cfg: V757Config) -> int:
     return min(k_max + 3, cfg.window // 2)
 
 
-def _spectral_frames(series: torch.Tensor, cfg: V757Config, hop: int):
-    """Band spectra of every frame of ``series [..., L]``, framed route:
-    candidates and group delay (see `_cands_and_gd`)."""
+# Hop-1 frames of one canonical resumable block: one sliding-DFT chunk,
+# and at most one block recomputed by an online tick.
+FRAME_BLOCK = 128
+
+
+# Symbols from which the resumable stage takes the sliding branch on the
+# card when `sliding_spectral` is None: below, a one-bar tick is host-bound
+# and the framed branch's fewer launches win; above, the framed branch's
+# [B, FRAME_BLOCK, window] windows set the tick (PERF.md, section 6).
+SLIDING_MIN_ROWS = 512
+
+
+def _use_sliding(cfg: V757Config, hop: int, device: torch.device, rows: int) -> bool:
+    """The sliding route where it applies (hop 1, EHLERS or NONE detrend,
+    a cosine-sum taper) and `cfg.sliding_spectral` asks for it, for a
+    call over `rows` series on `device`. None takes it for the resumable
+    stage on the card from `SLIDING_MIN_ROWS` series, and the framed route
+    elsewhere: on the card the framed route with B3 measured faster at
+    shape (c) (128 symbols), and on the CPU the JAX package takes it too."""
+    if not (hop == 1 and cfg.detrend in (DetrendMode.NONE, DetrendMode.EHLERS)
+            and taper_harmonics(cfg.taper) is not None):
+        return False
+    if cfg.sliding_spectral is None:
+        return cfg.resumable and device.type == "cuda" and rows >= SLIDING_MIN_ROWS
+    return cfg.sliding_spectral
+
+
+def _rows(x: torch.Tensor) -> int:
+    """The number of series in ``x [..., L]``."""
+    return x.numel() // max(x.shape[-1], 1)
+
+
+@lru_cache(maxsize=8)
+def _rank1_tables(window: int, n_bins: int, taper: int, trend_period: int,
+                  device: torch.device):
+    """The per-window cold start of the Ehlers filter as a rank-1 term:
+    (alpha^j [N], and the real and imaginary parts of the tapered DFT of
+    alpha^j at bins [0, n_bins)), float32 on `device`."""
+    alpha, _ = _ehlers_consts(trend_period)
+    aj = alpha ** np.arange(window, dtype=np.float64)
+    tg = tapered_dft_of(aj, n_bins, taper)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+                 for x in (aj, tg.real, tg.imag))
+
+
+def _ehlers_delta(series: torch.Tensor, trend: torch.Tensor, cfg: V757Config, t: int):
+    """``delta_w = c2 p[w] - trend[w]`` of the first `t` windows: the
+    per-window cold-start filter differs from the series-level one by
+    ``alpha^j delta_w``."""
+    c2 = float(np.float32(_ehlers_consts(cfg.trend_period)[1]))
+    return c2 * series[..., :t] - trend[..., :t]
+
+
+def _minus_rank1(spec: torch.Tensor, delta: torch.Tensor, cfg: V757Config) -> torch.Tensor:
+    """``spec - delta DFT(taper alpha^j)`` on real and imaginary parts."""
+    _, tg_re, tg_im = _rank1_tables(cfg.window, spec.shape[-1], int(cfg.taper),
+                                    cfg.trend_period, spec.device)
+    d = delta[..., None]
+    return torch.complex(spec.real - d * tg_re, spec.imag - d * tg_im)
+
+
+def _band_spectra(series: torch.Tensor, cfg: V757Config, hop: int) -> torch.Tensor:
+    """Band spectra ``[..., T, n_bins]`` of every frame of ``series [..., L]``
+    by the route of `cfg` (module docstring). On the sliding route the
+    bins below `_gd_lo` are not the spectrum and are never read."""
     n = cfg.window
+    series = series.to(torch.float32)
+    if cfg.resumable:
+        if hop != 1:
+            raise ValueError("resumable v757 requires hop=1")
+        return _band_spec_resumable(series, cfg)
+    if _use_sliding(cfg, hop, series.device, _rows(series)):
+        hp = (ehlers_highpass_detrend(series, cfg.trend_period)
+              if cfg.detrend == DetrendMode.EHLERS else series)
+        spec = sliding_band_spec(hp, n, _n_bins(cfg), cfg.taper, k_lo=_gd_lo(cfg))
+        if cfg.detrend == DetrendMode.EHLERS:
+            spec = _minus_rank1(spec, _ehlers_delta(series, series - hp, cfg, spec.shape[-2]),
+                                cfg)
+        return spec
     if cfg.detrend == DetrendMode.EHLERS:
         windows = frame_highpassed(series, n, hop, cfg.trend_period)
     else:   # as the JAX package's framed branch: LINEAR frames the raw series too
-        windows = frame_series(series.to(torch.float32), n, hop).contiguous()
+        windows = frame_series(series, n, hop).contiguous()
     if cfg.taper != WindowType.NONE:
         windows.mul_(window_coefficients(n, cfg.taper, device=windows.device))
-    return _cands_and_gd(band_dft(windows, _n_bins(cfg)), cfg)
+    return band_dft(windows, _n_bins(cfg))
+
+
+def _spectral_frames(series: torch.Tensor, cfg: V757Config, hop: int):
+    """Candidates and group delay of every frame (`_cands_and_gd` of
+    `_band_spectra`)."""
+    return _cands_and_gd(_band_spectra(series, cfg, hop), cfg)
+
+
+def _resumable_block_spec(seg: torch.Tensor, hp_seg: torch.Tensor, trend_seg: torch.Tensor,
+                          cfg: V757Config) -> torch.Tensor:
+    """Band spectra ``[..., FRAME_BLOCK, n_bins]`` of the block's frames
+    from ``seg``, ``hp_seg``, ``trend_seg [..., window + FRAME_BLOCK - 1]``
+    (raw samples from the block's first frame, their block-resumable
+    high-pass, its trend; for NONE detrend `seg` in all three).
+
+    Every product here sees the same operand shapes, and freshly allocated
+    operands, wherever the block sits in the stream, so an online tick
+    that recomputes its block reproduces the one-shot run's values bitwise.
+    The sliding branch computes bins from `_gd_lo` (those below hold
+    ``-delta DFT(taper alpha^j)``, never read); the framed branch takes
+    kernel B3 on the card.
+    """
+    n, fb = cfg.window, FRAME_BLOCK
+    n_bins = _n_bins(cfg)
+    ehlers = cfg.detrend == DetrendMode.EHLERS
+    if _use_sliding(cfg, 1, seg.device, _rows(seg)):
+        spec = sliding_band_spec(hp_seg, n, n_bins, cfg.taper, chunk=fb, pin=True,
+                                 k_lo=_gd_lo(cfg))
+        if ehlers:
+            spec = _minus_rank1(spec, _ehlers_delta(seg, trend_seg, cfg, fb), cfg)
+        return spec
+    windows = hp_seg.unfold(-1, n, 1)[..., :fb, :]
+    if ehlers:   # into a new contiguous buffer (B3 takes no strided view)
+        aj = _rank1_tables(n, n_bins, int(cfg.taper), cfg.trend_period, seg.device)[0]
+        out = _ehlers_delta(seg, trend_seg, cfg, fb)[..., None] * aj
+        windows = torch.sub(windows, out, out=out)
+    else:
+        windows = _fresh(windows)
+    if cfg.taper != WindowType.NONE:
+        windows.mul_(window_coefficients(n, cfg.taper, device=windows.device))
+    return band_dft(windows, n_bins)
+
+
+def _resumable_hp(series: torch.Tensor, cfg: V757Config):
+    """(hp, trend) of the resumable stage: the block-resumable Ehlers
+    filter, or the series itself for NONE detrend."""
+    if cfg.detrend == DetrendMode.EHLERS:
+        hp = ehlers_highpass_blocked(series, cfg.trend_period, block=FRAME_BLOCK)
+        return hp, series - hp
+    if cfg.detrend == DetrendMode.NONE:
+        return series, series
+    raise ValueError(f"resumable v757 supports EHLERS/NONE detrend, got {cfg.detrend!r}")
+
+
+def _band_spec_resumable(series: torch.Tensor, cfg: V757Config) -> torch.Tensor:
+    """One-shot spectra ``[..., T, n_bins]`` through the canonical blocks,
+    one `_resumable_block_spec` call a block (never batched together), so
+    that each block's products have the online driver's shapes."""
+    n, fb = cfg.window, FRAME_BLOCK
+    hp, trend = _resumable_hp(series, cfg)
+    t_frames = series.shape[-1] - n + 1
+    nblk = -(-t_frames // fb)
+    seg_len = n + fb - 1
+    short = (nblk - 1) * fb + seg_len - series.shape[-1]
+    xs = [torch.nn.functional.pad(x, (0, short)) for x in (series, hp, trend)]
+    blocks = [_resumable_block_spec(*(_fresh(x[..., k * fb:k * fb + seg_len]) for x in xs), cfg)
+              for k in range(nblk)]
+    return torch.cat(blocks, dim=-2)[..., :t_frames, :]
 
 
 def _cands_and_gd(spec: torch.Tensor, cfg: V757Config):
@@ -156,15 +306,23 @@ def _frame_prices(series: torch.Tensor, cfg: V757Config, hop: int, t_frames: int
     return newest, price_prev.to(torch.float32)
 
 
-def _v757_batch(series: torch.Tensor, cfg: V757Config, hop: int) -> dict:
-    """The full pipeline over ``series [B, L]`` on its device."""
-    cand_period, cand_power, cand_idx, cand_valid, gd, gd_idx = \
-        _spectral_frames(series, cfg, hop)
-    slots, _ = track_frames(cand_period, cand_power, cand_idx, cand_valid, cfg.tracker)
-    newest, price_prev = _frame_prices(series, cfg, hop, cand_period.shape[-2])
+def _slots_and_tail(spectral, newest: torch.Tensor, price_prev: torch.Tensor,
+                    cfg: V757Config, hop: int, tracker_init=None, tail_init=None,
+                    return_state: bool = False):
+    """Trackers, tail and leak ETA from the spectral tuple of
+    `_spectral_frames` and the frame-aligned prices (`_frame_prices`):
+    the output dict of `run_v757_batch`, and with `return_state` also the
+    final tracker and tail states, which `tracker_init`/`tail_init`
+    resume from (`price_prev` is read only without `tail_init`)."""
+    cand_period, cand_power, cand_idx, cand_valid, gd, gd_idx = spectral
+    slots, tracker_state = track_frames(cand_period, cand_power, cand_idx, cand_valid,
+                                        cfg.tracker, init=tracker_init)
     lo = _gd_lo(cfg)
     tail = v757_tail(newest, price_prev, slots["slot_period"], slots["slot_valid"],
-                     _pick_band(gd, slots["slot_fft_index"], lo), cfg, hop)
+                     _pick_band(gd, slots["slot_fft_index"], lo), cfg, hop,
+                     init=tail_init, return_state=return_state)
+    if return_state:
+        tail, tail_state = tail
     leak_eta = leak_eta_bars(
         slots["leak_active"], slots["leak_period"], slots["leak_bars"],
         _pick_band(gd_idx, slots["leak_fft_index"], lo), tail["eta_display"],
@@ -173,7 +331,25 @@ def _v757_batch(series: torch.Tensor, cfg: V757Config, hop: int) -> dict:
                                  "leak_active", "leak_period")}
     out["leak_eta"] = leak_eta
     out.update(tail)
-    return out
+    return (out, tracker_state, tail_state) if return_state else out
+
+
+def _v757_batch(series: torch.Tensor, cfg: V757Config, hop: int) -> dict:
+    """The full pipeline over ``series [B, L]`` on its device."""
+    spectral = _spectral_frames(series, cfg, hop)
+    newest, price_prev = _frame_prices(series, cfg, hop, spectral[0].shape[-2])
+    return _slots_and_tail(spectral, newest, price_prev, cfg, hop)
+
+
+def check_card_limits(cfg: V757Config) -> None:
+    """Raise ValueError, naming the limit, where kernel B4 (vectorized
+    matcher only) or B5 cannot take `cfg` on the card."""
+    from wavespec_tpu_torch.kernels.tracker import check_config
+    from wavespec_tpu_torch.kernels.v757_tail import slots_per_lane
+
+    if not cfg.tracker.sequential_match:
+        check_config(cfg.tracker)
+    slots_per_lane(cfg.tracker.n_slots)
 
 
 def _as_series(series, device) -> torch.Tensor:
@@ -199,7 +375,6 @@ def run_v757_batch(series_batch, cfg: V757Config = V757Config(), hop: int = 1,
     `symbol_chunk` runs the batch that many symbols at a time (the frame
     matrix is ``[B, T, window]`` float32).
     """
-    _require_ported(cfg)
     x = _as_series(series_batch, device)
     if x.dim() != 2:
         raise ValueError(f"series_batch must be [B, L], got {tuple(x.shape)}")
@@ -207,13 +382,10 @@ def run_v757_batch(series_batch, cfg: V757Config = V757Config(), hop: int = 1,
         raise ValueError(f"series of {x.shape[-1]} bars is shorter than the window {cfg.window}")
     if hop < 1:
         raise ValueError(f"hop must be >= 1, got {hop}")
+    if cfg.resumable and hop != 1:
+        raise ValueError("resumable v757 requires hop=1")
     if x.is_cuda:
-        # the kernels' size limits, named before any work
-        from wavespec_tpu_torch.kernels.tracker import check_config
-        from wavespec_tpu_torch.kernels.v757_tail import slots_per_lane
-
-        check_config(cfg.tracker)
-        slots_per_lane(cfg.tracker.n_slots)
+        check_card_limits(cfg)   # named before any work
     with torch.no_grad():
         if symbol_chunk and x.shape[0] > symbol_chunk:
             parts = [_v757_batch(x[lo:lo + symbol_chunk], cfg, hop)

@@ -39,6 +39,8 @@ compared on the circle, with rtol 0.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 
 RESOLVED_FRACTION = 0.05
@@ -493,3 +495,18 @@ def planted_selection_rows(tables, n_rows: int, seed: int):
     for r in range(n_rows):
         band_power[r, rng.integers(0, kb, 4)] += rng.uniform(10.0, 100.0, 4)
     return pseudo.astype(np.float32), band_power.astype(np.float32)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op thread inside the block, the count restored after: the
+    plain versions run many tiny reductions, each of which wakes every
+    OpenMP thread (milliseconds apiece when test workers share the cores)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
