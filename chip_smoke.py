@@ -84,7 +84,18 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
    and their device operations counted; (i) the reference-exact mode
    (all in-band bins, the sequential matcher) card against CPU at window
    4096, and the matcher timed;
-7. prints one JSON line with every kernel's record (launches summed over
+7. drives the six model presets of `wavespec_tpu_torch.models` and a
+   segmented template job at their published widths (`model_presets`),
+   each a main path of its own with the counts reset before and read
+   after: `flagship` and `nodetrend_top8` at 20,000 windows (hop 1),
+   `v757()` and `preproc_core` on 4,607 bars, `kalman_wave_model` at
+   20,000 frames, `wave4ea()` at window 32768 and the template job at
+   window 65536 (segments of 16384, auto overlap 4096); checks outputs and
+   planted periods, holds every B1-B5 call of one run of each against its
+   plain version (B1, B2, B4, B5 bitwise, B3 within 1e-4 a window), times
+   each call with its launches, device operations, busy share and peak
+   memory, and holds each preset at window 1024 card against CPU;
+8. prints one JSON line with every kernel's record (launches summed over
    every main path), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no
@@ -289,7 +300,7 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
     from wavespec_tpu_torch.kernels import music_select as ks
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as kv
-    from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
+    from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_bins
     from wavespec_tpu_torch.pipeline.tail import V757TailState, v757_tail_plain
     from wavespec_tpu_torch.pipeline.v757 import V757Config
     from wavespec_tpu_torch.testing import selection_edge_rows, tail_stream, tracker_stream
@@ -321,7 +332,7 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
         windows = frame_series(hp, WINDOW, hop).contiguous()
         pseudo, _ = music_pseudospectrum(
             band_precondition_windows(hp, bcfg, hop, ext.band_hp), bcfg, btables)
-        band_power = power_spectrum(rfft_band(windows, btables.k_max + 1))[
+        band_power = power_spectrum(rfft_bins(windows))[
             ..., btables.k_min: btables.k_max + 1].contiguous()
         rows = [(pseudo, band_power, "main-path rows")]
         rows += [(*(torch.from_numpy(r).to(dev) for r in selection_edge_rows(btables, bcfg, sd)),
@@ -849,37 +860,61 @@ def feed(drv, bars: np.ndarray, chunks, timed_from: int, profiled=range(0), chec
 
 
 class KernelCalls:
-    """Within `with`, wraps the calls of the v7.57 path that reach B3, B4
-    and B5 where it looks them up (`pipeline.v757.band_dft`,
-    `pipeline.v757.track_frames`, which takes B4 on the card for the
-    vectorized matcher, and `pipeline.v757.v757_tail`) and, while `on`,
-    records each call's (name, args, kwargs, result). Nothing is copied:
-    the path writes no tensor after handing it to a kernel or receiving
-    it from one."""
+    """Within `with`, wraps every site where a path looks up B1-B5 and,
+    while `on`, records each call's (name, args, kwargs, result): the
+    kernel modules' own wrappers (looked up at call time by
+    `analyze.jacobi.jacobi_eigh`, `analyze.music.music_extract`,
+    `ops.spectrum.framed_spectrum` and B3's own split of long windows) and
+    those `pipeline.v757` imported (`band_dft`, `track_frames`, which takes
+    B4 on the card for the vectorized matcher, and `v757_tail`). Nothing is
+    copied: no path writes a tensor after handing it to a kernel or
+    receiving it from one. Launch counts are kept on the wrapped
+    functions (`_Recording.launches`), so a path counted while recorded
+    counts as it would unrecorded."""
 
     def __init__(self):
+        from wavespec_tpu_torch.kernels import band_dft as kb
+        from wavespec_tpu_torch.kernels import jacobi as kj
+        from wavespec_tpu_torch.kernels import music_select as ks
         from wavespec_tpu_torch.pipeline import v757 as pv
 
-        self.sites = ((pv, "band_dft"), (pv, "track_frames"), (pv, "v757_tail"))
+        self.sites = ((kj, "jacobi_eigh_unsorted"), (ks, "select_candidates"),
+                      (kb, "band_dft"), (pv, "band_dft"), (pv, "track_frames"),
+                      (pv, "v757_tail"))
         self.on, self.calls = False, []
 
     def __enter__(self):
         self.saved = [getattr(m, name) for m, name in self.sites]
         for (m, name), fn in zip(self.sites, self.saved):
-            setattr(m, name, self._recording(name, fn))
+            setattr(m, name, _Recording(self, name, fn))
         return self
 
     def __exit__(self, *exc):
         for (m, name), fn in zip(self.sites, self.saved):
             setattr(m, name, fn)
 
-    def _recording(self, name, fn):
-        def call(*args, **kw):
-            out = fn(*args, **kw)
-            if self.on:
-                self.calls.append((name, args, kw, out))
-            return out
-        return call
+
+class _Recording:
+    """`fn` as `KernelCalls` records it. A kernel wrapper that is replaced
+    in its own module counts its launches through this stand-in
+    (`band_dft.launches += 1`), which passes them on to `fn`."""
+
+    def __init__(self, calls: KernelCalls, name: str, fn):
+        self.calls, self.name, self.fn = calls, name, fn
+
+    def __call__(self, *args, **kw):
+        out = self.fn(*args, **kw)
+        if self.calls.on:
+            self.calls.calls.append((self.name, args, kw, out))
+        return out
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches = value
 
 
 def check_tick_calls(calls: KernelCalls, label: str) -> None:
@@ -1350,6 +1385,311 @@ def live_v757(dev, tag, counters, reset_counts) -> dict:
                          **reference_exact(dev, tag, counters, reset_counts)}}
 
 
+PRESET_TEXT_W1024 = ("time: dc(mode=0); extract: window=1024, top_k=6, method=music, "
+                     "min_period=2, max_period=512, ar_order=16; waves: 12")
+
+
+def check_preset_calls(calls: KernelCalls, label: str) -> dict:
+    """Every recorded B1-B5 call of one preset run against its plain version
+    on the same inputs: B1, B2, B4 and B5 bitwise (every output and the
+    final states), B3 per window within 1e-4 of its largest bin (a call on
+    windows past `MAX_N`, which recombines the kernel's sub-window calls,
+    against a float64 DFT of the same windows, every bin it returns; its
+    sub-window calls against the plain version as any other).
+    Returns the calls counted by kernel."""
+    from wavespec_tpu_torch.analyze.jacobi import jacobi_eigh_plain
+    from wavespec_tpu_torch.analyze.music import select_candidates_plain
+    from wavespec_tpu_torch.analyze.trackers import TrackerState, track_frames_plain
+    from wavespec_tpu_torch.kernels.band_dft import MAX_N
+    from wavespec_tpu_torch.ops import spectrum as ps
+    from wavespec_tpu_torch.pipeline.tail import v757_tail_plain
+
+    count, b3_err, long_b3 = {}, 0.0, {}
+    for name, args, kw, out in calls.calls:
+        count[name] = count.get(name, 0) + 1
+        if name == "band_dft":
+            windows = args[0]
+            if windows.shape[-1] > MAX_N:   # the split's recombination, every bin of it
+                n_bins = args[1] if len(args) > 1 else kw["n_bins"]
+                ref = torch.fft.rfft(windows.double(), dim=-1)[..., :n_bins]
+                what = f"a float64 DFT ({n_bins} bins)"
+            else:
+                ref, what = ps.band_dft_plain(*args, **kw), "its plain version"
+            if out.shape != ref.shape:
+                raise AssertionError(f"presets {label}: B3 on {tuple(windows.shape)} gave "
+                                     f"{tuple(out.shape)}, not {tuple(ref.shape)}")
+            err = ((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+            if not (err <= 1e-4 and torch.isfinite(torch.view_as_real(out)).all()):
+                raise AssertionError(f"presets {label}: B3 on {tuple(windows.shape)} off "
+                                     f"{what} ({err:.3e})")
+            if windows.shape[-1] > MAX_N:
+                key = (tuple(windows.shape), n_bins)
+                long_b3[key] = max(long_b3.get(key, 0.0), err)
+            else:
+                b3_err = max(b3_err, err)
+            continue
+        if name == "jacobi_eigh_unsorted":
+            got, ref = dict(enumerate(out)), dict(enumerate(jacobi_eigh_plain(*args, **kw)))
+        elif name == "select_candidates":
+            got, ref = out, select_candidates_plain(*args, **kw)
+        elif name == "track_frames":
+            (got, state), (ref, ref_state) = out, track_frames_plain(*args, **kw)
+            got = {**got, **{f"state.{f}": getattr(state, f) for f in TrackerState._fields}}
+            ref = {**ref, **{f"state.{f}": getattr(ref_state, f) for f in TrackerState._fields}}
+        else:
+            got, ref = out, v757_tail_plain(*args, **kw)
+            if kw.get("return_state"):
+                (got, state), (ref, ref_state) = got, ref
+                got = {**got, **{f"state.{k}": v for k, v in state._asdict().items()}}
+                ref = {**ref, **{f"state.{k}": v for k, v in ref_state._asdict().items()}}
+        bad = [k for k in ref if got[k].dtype != ref[k].dtype or not torch.equal(got[k], ref[k])]
+        if bad:
+            raise AssertionError(f"presets {label}: {name} on {tuple(args[0].shape)} differs "
+                                 f"from its plain version in {bad}")
+    ps._dft_basis.cache_clear()          # the plain DFT's bases (up to 1 GB at 16384)
+    held = [f"{name} bitwise" for name in count if name != "band_dft"]
+    if "band_dft" in count:
+        held.append(f"band_dft within {b3_err:.3e} of each window's largest bin (tol 1e-4)")
+    for (shape, n_bins), err in long_b3.items():
+        held.append(f"band_dft on {shape} windows past MAX_N, {n_bins} bins, against a "
+                    f"float64 DFT within {err:.3e} of each window's largest bin (tol 1e-4)")
+    log(f"presets {label}: every kernel call of one run against its plain version on the same "
+        f"inputs: {count}; " + ", ".join(held))
+    return count
+
+
+def profile_call(fn) -> tuple[int, float]:
+    """(device operations, device milliseconds) of one call of `fn()`,
+    traced by `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+def preset_card_vs_cpu(name, make, x: np.ndarray, method=None, vcfg=None) -> str:
+    """One preset at a small width (`make(device)` builds it) on the card
+    and on the CPU (every kernel's plain version), held within
+    `wavespec_tpu_torch.testing`'s limits; returns what was compared."""
+    from wavespec_tpu_torch.pipeline import v757 as pv
+    from wavespec_tpu_torch.testing import (attrs_mismatches, decode_mismatches, limits_for,
+                                            v757_readings)
+
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.cpu().numpy()
+
+    card, cpu = host(make("cuda").run(x)), host(make("cpu").run(x))
+    bad = []
+    if vcfg is not None:            # v757: excuse a slot only after a rank flip
+        idx = [pv._cands_and_gd(pv._band_spectra(torch.from_numpy(x)[None].to(d), vcfg, 1),
+                                vcfg)[2].cpu() for d in ("cuda", "cpu")]
+        flips = (idx[0] != idx[1]).any(-1).numpy()
+        bad, excused = v757_readings({k: v[None] for k, v in card.items()},
+                                     {k: v[None] for k, v in cpu.items()}, rank_flips=flips)
+        if len(excused) > 2:
+            bad.append(f"{len(excused)} slot tracks excused after a rank flip (at most 2)")
+        what = (f"v757_readings; candidate lists differ on {int(flips.sum())} of "
+                f"{flips.size} frames, {len(excused)} of 12 slot tracks excused (at most 2)")
+    elif "wave_kalman" in cpu:
+        for k in ("wave_kalman", "basis"):
+            err = np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max()
+            if not err <= 1e-4:
+                bad.append(f"{k} {err:.3e} of its largest (tol 1e-4)")
+        werr = np.abs(card["weights"] - cpu["weights"]).max() / np.abs(cpu["weights"]).max()
+        if not werr <= 1e-3:
+            bad.append(f"weights {werr:.3e} of their largest (tol 1e-3)")
+        what = (f"blend and basis within 1e-4 of their largest; the final weights (a "
+                f"regression that amplifies the basis's rounding) within {werr:.3e} of "
+                f"their largest (tol 1e-3)")
+    else:
+        bad += attrs_mismatches(card["attrs"], cpu["attrs"], limits=limits_for(method))
+        what = "attrs within testing's limits"
+        if "wave" in cpu:           # a decoded rolling batch, on its resolved slots
+            amp = cpu["attrs"][..., 0]
+            res = (amp > 0) & (amp >= 0.05 * amp.max(axis=-1, keepdims=True))
+            res = res[..., :cpu["wave"].shape[-1]]   # the flagship's 2 slots: its 2 cycles
+            keys = ("wave", "period", "eta_seconds")
+            bad += decode_mismatches({k: np.where(res, card[k], 0.0) for k in keys},
+                                     {k: np.where(res, cpu[k], 0.0) for k in keys})
+            what += ", the decoded resolved slots likewise"
+        else:                      # a template job
+            err = np.abs(card["fft"] - cpu["fft"]).max() / np.abs(cpu["fft"]).max()
+            if not err <= 1e-4:
+                bad.append(f"fft {err:.3e} of its largest (tol 1e-4)")
+            what += f", fft within {err:.3e} of its largest (tol 1e-4)"
+        for k, r in cpu.get("rendered", {}).items():
+            g = card["rendered"][k]
+            if not np.array_equal(np.isnan(g), np.isnan(r)):
+                bad.append(f"rendered {k}: the bars drawn differ")
+                continue
+            drawn = ~np.isnan(r)
+            if k in ("wave", "forecast"):
+                bad += [f"rendered {k}: {m}" for m in
+                        decode_mismatches({"wave": g[drawn]}, {"wave": r[drawn]})]
+            elif k == "period" and not np.allclose(g[drawn], r[drawn], rtol=1e-4, atol=1e-4):
+                bad.append("rendered period beyond 1e-4")
+        if "rendered" in cpu:
+            what += ("; rendered: the same bars drawn and forecast, wave and forecast within "
+                     "the wave's limit, period within 1e-4")
+    if bad:
+        raise AssertionError(f"presets {name}, card vs CPU: {bad}")
+    return what
+
+
+def model_presets(dev, tag, counters, reset_counts) -> dict:
+    """The six model presets of `wavespec_tpu_torch.models` on the card at
+    their published widths, and the segmented template job; each call a
+    main path of its own with every launch count set to 0 just before and
+    read just after (returned per call):
+    - `flagship(window=4096, hop=1)` on 24,095 bars (20,000 windows),
+      `nodetrend_top8(4096, 1)` and `kalman_wave_model(4096, 1)` on the
+      same series; `v757()` at its defaults (hop 1) and `preproc_core(4096)`
+      on one series of 4,607 bars (512 frames); `wave4ea()` at its default
+      preset (window 32768, MUSIC, ar_order 16, band [2, 4096]) on 40,000
+      bars; and the template job of `build_wave_preset_template(
+      segment_len=16384, overlap=-1, mix_mode=0, top_cycles=6,
+      min_period=9, max_period=200, wave_slots=2, stage_time="dc(mode=0)",
+      window=65536)` (MUSIC, auto overlap 4096) on 70,000 bars. Series:
+      `planted_series` (cycles of 50 and 120 bars on a random walk),
+      seeds 20-23.
+    Each call's outputs are checked (shapes, finite values, the planted
+    periods); every B1-B5 call of one run is held against its plain
+    version on the same inputs (`check_preset_calls`); the call is timed
+    (CUDA events, median of 5 after warm-up) with its kernel launches,
+    device operations and busy share (one call traced by `torch.profiler`:
+    device time over the untraced call's time) and peak memory. Then each
+    preset at window 1024 (300 windows or frames) runs on the card and on
+    the CPU and is held within `testing`'s limits (`preset_card_vs_cpu`)."""
+    from wavespec_tpu_torch import V757Config, models
+    from wavespec_tpu_torch.pipeline.spec import build_wave_preset_template
+
+    launches = {}
+    path_launches = _path_launches(launches, counters, reset_counts)
+    long_x = planted_series(WINDOW + 19999, SEED + 20)
+    short_x = planted_series(WINDOW + 511, SEED + 21)
+    template = build_wave_preset_template(
+        segment_len=16384, overlap=-1, mix_mode=0, top_cycles=6, min_period=9,
+        max_period=200, wave_slots=2, stage_time="dc(mode=0)", window=65536)
+    calls = [
+        ("flagship", models.flagship(WINDOW, 1), long_x, ("jacobi_eigh", "music_select")),
+        ("nodetrend_top8", models.nodetrend_top8(WINDOW, 1), long_x, ("band_dft",)),
+        ("v757", models.v757(), short_x, ("band_dft", "tracker", "v757_tail")),
+        ("preproc_core", models.preproc_core(WINDOW), short_x, ("band_dft",)),
+        ("kalman_wave_model", models.kalman_wave_model(WINDOW, 1), long_x, ("band_dft",)),
+        ("wave4ea", models.wave4ea(), planted_series(40000, SEED + 22),
+         ("jacobi_eigh", "music_select", "band_dft")),
+        ("template", models.wave4ea(template), planted_series(70000, SEED + 23),
+         ("jacobi_eigh", "music_select", "band_dft")),
+    ]
+    log(f"presets: the segmented template job's text: {template!r}")
+    readings = {}
+    for name, model, x_host, want in calls:
+        x = torch.from_numpy(x_host).to(dev)
+        recorded = KernelCalls()    # the warm-up run (tables, plans), recorded
+        with recorded:
+            recorded.on = True
+            model.run(x)
+        check_preset_calls(recorded, name)
+        del recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = path_launches(name, lambda: model.run(x), want)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        check_preset_output(name, out, x_host)
+        ms = cuda_ms(lambda: model.run(x), warmup=0)
+        ops, dev_ms = profile_call(lambda: model.run(x))
+        readings[name] = dict(ms=ms, ops=ops, dev_ms=dev_ms, peak=peak)
+        log(f"presets {name}: {ms:.3f} ms a call (median of 5, CUDA events), hand-kernel "
+            f"launches a call {launches[name]}, {ops} device operations a call, device time "
+            f"{dev_ms:.3f} ms (traced), busy share {100 * dev_ms / ms:.1f}%, peak memory "
+            f"{peak:.1f} MiB above the inputs {tag}")
+        del out
+    small = planted_series(1024 + 299, SEED + 24)
+    small_template = build_wave_preset_template(
+        segment_len=256, overlap=-1, mix_mode=0, top_cycles=6, min_period=9, max_period=200,
+        wave_slots=2, stage_time="dc(mode=0)", window=1024)
+    for name, make, kw in (
+            ("flagship", lambda d: models.flagship(1024, 1, device=d), dict(method="MUSIC")),
+            ("nodetrend_top8", lambda d: models.nodetrend_top8(1024, 1, device=d),
+             dict(method="FFT_RIDGE")),
+            ("v757", lambda d: models.v757(1024, 1, device=d, trend_period=256),
+             dict(vcfg=V757Config(window=1024, trend_period=256))),
+            ("preproc_core", lambda d: models.preproc_core(1024, device=d),
+             dict(method="FFT_RIDGE")),
+            ("kalman_wave_model", lambda d: models.kalman_wave_model(1024, 1, device=d), {}),
+            ("wave4ea", lambda d: models.wave4ea(PRESET_TEXT_W1024, device=d),
+             dict(method="MUSIC")),
+            ("template", lambda d: models.wave4ea(small_template, device=d),
+             dict(method="MUSIC"))):
+        what = preset_card_vs_cpu(name, make, small, **kw)
+        log(f"presets {name} at window 1024 ({small.size} bars), card vs CPU: {what}")
+    return {"launches": launches, "readings": readings}
+
+
+def check_preset_output(name: str, out: dict, x: np.ndarray) -> None:
+    """Shapes, finite values and the planted periods (50 and 120 bars) of
+    one preset call at full width."""
+    def finite(d):
+        return all(torch.isfinite(v).all() for v in d.values()
+                   if isinstance(v, torch.Tensor) and v.is_floating_point())
+
+    def found(periods, which=(50.0, 120.0), rtol=0.01):
+        p = periods.flatten().cpu().numpy()
+        return all(np.abs(p - w).min() <= rtol * w for w in which)
+
+    n = x.size
+    if name in ("flagship", "nodetrend_top8"):
+        nwin, k = n - WINDOW + 1, 4 if name == "flagship" else 8
+        ok = (tuple(out["attrs"].shape) == (nwin, k, 15) and finite(out)
+              and found(out["attrs"][-1, :, 2], rtol=0.01 if name == "flagship" else 0.005))
+        if name == "flagship":
+            r = out["rendered"]
+            ok &= all(tuple(v.shape) == (n, 2) for v in r.values())
+            ok &= bool(torch.isfinite(r["wave"][WINDOW - 1:]).all())
+            drawn = int((~torch.isnan(r["wave"])).sum())
+            log(f"presets flagship: rendered buffers [{n}, 2]; {drawn} of {2 * n} wave cells "
+                f"drawn, {int((~torch.isnan(r['forecast'])).sum())} forecast markers")
+    elif name == "v757":
+        t = n - WINDOW + 1
+        near = out["slot_valid"][-1] & ((out["slot_period"][-1] - 50.0).abs() <= 1.0)
+        ok = tuple(out["slot_period"].shape) == (t, 12) and finite(out) and bool(near.any())
+    elif name == "kalman_wave_model":
+        t = n - WINDOW + 1
+        ok = (tuple(out["wave_kalman"].shape) == (t,) and tuple(out["basis"].shape) == (t, 8)
+              and finite(out))
+        err = (out["wave_kalman"] - torch.from_numpy(x[WINDOW - 1:]).to(out["basis"].device))
+        log(f"presets kalman_wave_model: blend against the close over {t} frames: median "
+            f"|error| {err.abs().median().item():.4f}, last 1000 frames "
+            f"{err[-1000:].abs().median().item():.4f}")
+    else:
+        bins = {"preproc_core": WINDOW // 2, "wave4ea": 32768 // 2, "template": 16384 // 2}[name]
+        k = 4 if name == "preproc_core" else 6
+        ok = (tuple(out["attrs"].shape) == (k, 15) and tuple(out["fft"].shape) == (bins,)
+              and finite(out) and found(out["attrs"][:, 2]))
+        if name == "template":
+            ok &= tuple(out["fft_power"].shape) == (bins,) and bool((out["fft_power"] >= 0).all())
+        if name == "preproc_core":
+            ok &= tuple(out["filtered"].shape) == (WINDOW,)
+    if not ok:
+        raise AssertionError(f"presets {name}: outputs malformed or planted periods missed: "
+                             f"{ {k: tuple(v.shape) for k, v in out.items() if hasattr(v, 'shape')} }")
+    if "attrs" in out:
+        newest = out["attrs"].reshape(-1, *out["attrs"].shape[-2:])[-1, :, 2]
+        log(f"presets {name}: every output finite and of its shape; newest periods "
+            f"{[round(v, 3) for v in newest.tolist()]}")
+    else:
+        log(f"presets {name}: every output finite and of its shape")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -1368,7 +1708,7 @@ def main() -> None:
     from wavespec_tpu_torch.kernels import music_select as ks
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as ktail
-    from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
+    from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_bins
     from wavespec_tpu_torch.ops.windows import window_coefficients
     from wavespec_tpu_torch.pipeline import v757
     from wavespec_tpu_torch.testing import (attrs_mismatches, attrs_readings,
@@ -1437,7 +1777,7 @@ def main() -> None:
         band_w = band_precondition_windows(hp, cfg, hop, music.band_hp)
         covs = torch.stack([_autocov_toeplitz(bw, cfg.ar_order) for bw in band_w], dim=-3)
         pseudo, _ = music_pseudospectrum(band_w, cfg, tables)
-        band_power = power_spectrum(rfft_band(windows, tables.k_max + 1))[
+        band_power = power_spectrum(rfft_bins(windows))[
             ..., tables.k_min: tables.k_max + 1].contiguous()
         return covs.reshape(-1, 10, 10).contiguous(), pseudo, band_power
 
@@ -1764,11 +2104,14 @@ def main() -> None:
     methods = extraction_methods(dev, tag, counters, reset_counts)
     # ---- 6. the live v7.57 path, each a main path of its own ----
     live = live_v757(dev, tag, counters, reset_counts)
-    for path in (*methods["launches"].values(), *live["launches"].values()):
+    # ---- 7. the model presets, each a main path of its own ----
+    presets = model_presets(dev, tag, counters, reset_counts)
+    for path in (*methods["launches"].values(), *live["launches"].values(),
+                 *presets["launches"].values()):
         for k, n in path.items():
             launches[k] += n
 
-    # ---- 7. the kernel records ----
+    # ---- 8. the kernel records ----
     sources = {
         "jacobi_eigh": "wavespec_tpu/kernels/jacobi_pallas.py:121",
         "music_select": "wavespec_tpu/kernels/music_select_pallas.py:214",

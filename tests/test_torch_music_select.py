@@ -33,7 +33,7 @@ from wavespec_tpu_torch.analyze import music as pmu
 from wavespec_tpu_torch.kernels.music_select import (
     MAX_LIST, check_candidates, list_capacity, list_size, select_candidates)
 from wavespec_tpu_torch.ops.detrend import HighpassMXU
-from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_band
+from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_bins
 from wavespec_tpu_torch.testing import planted_selection_rows, selection_edge_rows
 
 SMALL = dict(window=1024, top_k=2, min_period=18.0, max_period=52.0, ar_order=10)
@@ -132,7 +132,7 @@ def test_plain_matches_music_candidates_on_planted_series():
     pbw = pmu.band_precondition_windows(php, pcfg, hop,
                                         HighpassMXU(pmu.band_hp_periods(pcfg)))
     pseudo, _ = pmu.music_pseudospectrum(pbw, pcfg, tables)
-    band_power = power_spectrum(rfft_band(pw, k_max + 1))[..., k_min: k_max + 1]
+    band_power = power_spectrum(rfft_bins(pw))[..., k_min: k_max + 1]
     got = select_candidates(pseudo, band_power.contiguous(), pcfg, tables)
 
     for key in ("valid", "gidx", "freq", "step0"):

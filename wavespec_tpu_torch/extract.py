@@ -144,29 +144,41 @@ class ExtractConfig:
             )
 
 
-def _build_config(cls, d: dict):
-    """`cls(**d)`, with enum fields rebuilt from their integer values and
-    nested config fields (a dataclass default) from their dicts."""
-    defaults = cls()
-    kw = {}
-    for key, v in d.items():
-        default = getattr(defaults, key)
+def _carried(value, default):
+    """A value of a config dict as the port's config holds it: a nested
+    config from its dict (by the field's default type, else by its
+    fields), an enum from its integer, tuples of them element by element
+    (lists as tuples, so the config stays hashable)."""
+    if isinstance(value, dict):
         if dataclasses.is_dataclass(default):
-            v = _build_config(type(default), v)
-        elif isinstance(default, enum.Enum):
-            v = type(default)(int(v))
-        kw[key] = v
-    return cls(**kw)
+            return _build_config(type(default), value)
+        return config_from_dict(value)
+    if isinstance(default, enum.Enum):
+        return type(default)(int(value))
+    if isinstance(value, (list, tuple)):
+        return tuple(_carried(v, None) for v in value)
+    return value
+
+
+def _build_config(cls, d: dict):
+    """`cls(**d)` with each value carried by `_carried`."""
+    defaults = {f.name: f.default for f in dataclasses.fields(cls)}
+    return cls(**{key: _carried(v, defaults[key]) for key, v in d.items()})
 
 
 def config_from_dict(d: dict):
-    """The port's config whose fields are the keys of `d` (e.g.
-    `dataclasses.asdict` of a JAX `ExtractConfig`, `ReconstructConfig` or
-    `V757Config`, nested configs included)."""
+    """The port's config whose fields are the keys of `d`: e.g.
+    `dataclasses.asdict` of a JAX `ExtractConfig`, `ReconstructConfig`,
+    `V757Config`, `PipelineSpec` (its stages, `SegmentSpec` and nested
+    configs included), `KalmanWaveConfig` or `KalmanWeightsConfig`."""
+    from wavespec_tpu_torch.filters.kalman_wave import KalmanWaveConfig
+    from wavespec_tpu_torch.filters.kalman_weights import KalmanWeightsConfig
+    from wavespec_tpu_torch.pipeline.spec import PipelineSpec, SegmentSpec, Stage
     from wavespec_tpu_torch.pipeline.v757 import V757Config
     from wavespec_tpu_torch.reconstruct import ReconstructConfig
 
-    for cls in (ExtractConfig, ReconstructConfig, V757Config):
+    for cls in (ExtractConfig, ReconstructConfig, V757Config, PipelineSpec, SegmentSpec,
+                Stage, KalmanWaveConfig, KalmanWeightsConfig):
         if set(d) == {f.name for f in dataclasses.fields(cls)}:
             return _build_config(cls, d)
     raise ValueError(f"fields {sorted(d)} match no config class")
@@ -481,7 +493,7 @@ class MusicExtractor(_Extractor):
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
         from wavespec_tpu_torch.analyze.music import (
             band_precondition_windows, music_extract)
-        from wavespec_tpu_torch.ops.spectrum import rfft_band
+        from wavespec_tpu_torch.ops.spectrum import rfft_bins
 
         cfg = self.cfg
         if not _series_fast_path(cfg):
@@ -493,7 +505,7 @@ class MusicExtractor(_Extractor):
         hp_series = self.main_hp(series)[..., 0, :]
         windows = frame_series(hp_series, cfg.window, hop).contiguous()
         band_w = band_precondition_windows(hp_series, cfg, hop, self.band_hp)
-        seed_spec = rfft_band(windows, self.tables.k_max + 1)
+        seed_spec = rfft_bins(windows)[..., :self.tables.k_max + 1]
         return music_extract(windows, cfg, band_w, seed_spec, self.tables)
 
 

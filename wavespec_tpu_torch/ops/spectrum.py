@@ -1,9 +1,13 @@
-"""Band indices, band rFFT and power spectrum (counterpart of
-`wavespec_tpu/ops/spectrum.py` and `kernels/mxu_fft.py::rfft_mxu`).
+"""Band indices, the real FFT in the bridge's n/2-bin layout and power
+spectrum (counterpart of `wavespec_tpu/ops/spectrum.py` and of the
+contract of `kernels/mxu_fft.py::rfft_mxu` / `irfft_mxu`).
 
 The JAX package evaluates the rFFT as a four-step MXU matmul because its
 TPU runtime has no FFT lowering; here `torch.fft.rfft` (cuFFT on the card,
-pocketfft on the CPU) computes the full transform and the band is sliced.
+pocketfft on the CPU) computes the full transform and the bins are sliced.
+The bridge's contract, which `rfft_bins` and `irfft_from_bins` keep: a
+length-n series has n/2 bins, DC up to the bin below Nyquist; the inverse
+takes the Nyquist bin as 0 and n from the caller.
 The v7.57 path instead takes the band DFT of kernel B3 (counterpart of
 `kernels/fused_dft.py`), whose plain version is the direct sum
 `band_dft_plain`.
@@ -55,9 +59,49 @@ def topk_cycles(spectrum: torch.Tensor, *, n: int, top_k: int = 8,
     return idx.to(torch.int32), powers, periods
 
 
-def rfft_band(windows: torch.Tensor, max_bins: int) -> torch.Tensor:
-    """Complex bins ``[0, max_bins)`` of the rFFT of real ``windows [..., n]``."""
-    return torch.fft.rfft(windows, dim=-1)[..., :max_bins]
+def dft_factors(n: int) -> tuple[int, int]:
+    """(N1, N2) of `rfft_mxu`'s split n = N1 N2, N1 <= N2, both powers of
+    two; ValueError unless n is a power of two >= 16 (its rule)."""
+    if n < 16 or (n & (n - 1)) != 0:
+        raise ValueError(f"window length must be a power of two >= 16, got {n}")
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    return n1, n // n1
+
+
+def rfft_bins(data: torch.Tensor, max_bins: int | None = None) -> torch.Tensor:
+    """The first ``n // 2`` complex bins of the rFFT of ``data [..., n]``
+    (no Nyquist bin). With `max_bins`, `rfft_mxu`'s prefix: its first
+    ``ceil(max_bins / N1) N1`` bins (at most n / 2; N1 from `dft_factors`,
+    which also checks n)."""
+    n = data.shape[-1]
+    bins = n // 2
+    if max_bins is not None:
+        n1, n2 = dft_factors(n)
+        bins = n1 * min(-(-max_bins // n1), n2 // 2)
+    return torch.fft.rfft(data, dim=-1)[..., :bins]
+
+
+def rfft_interleaved(data: torch.Tensor) -> torch.Tensor:
+    """The bridge's layout of `rfft_bins`: ``[re0, im0, re1, im1, ...]``,
+    n reals for n/2 bins, in `data`'s dtype."""
+    spec = rfft_bins(data)
+    out = torch.stack([spec.real, spec.imag], dim=-1)
+    return out.reshape(data.shape).to(data.dtype)
+
+
+def irfft_from_bins(spec: torch.Tensor, n: int) -> torch.Tensor:
+    """Inverse of `rfft_bins`: ``[..., n // 2]`` complex bins to a
+    length-n real series, the Nyquist bin taken as 0."""
+    nyquist = torch.zeros((*spec.shape[:-1], 1), dtype=spec.dtype, device=spec.device)
+    return torch.fft.irfft(torch.cat([spec, nyquist], dim=-1), n=n, dim=-1)
+
+
+def irfft_from_interleaved(inter: torch.Tensor) -> torch.Tensor:
+    """Inverse rFFT from the bridge's interleaved re/im layout."""
+    n = inter.shape[-1]
+    pairs = inter.reshape(*inter.shape[:-1], n // 2, 2)
+    spec = torch.complex(pairs[..., 0], pairs[..., 1])
+    return irfft_from_bins(spec, n).to(inter.dtype)
 
 
 def power_spectrum(spec: torch.Tensor) -> torch.Tensor:
@@ -103,4 +147,7 @@ def framed_spectrum(windows: torch.Tensor, n_bins: int) -> torch.Tensor:
         return torch.fft.rfft(windows, dim=-1)[..., :n_bins]
     from wavespec_tpu_torch.kernels.band_dft import band_dft
 
-    return band_dft(windows.to(torch.float32).contiguous(), n_bins)
+    windows = windows.to(torch.float32).contiguous()
+    if windows.data_ptr() % 16:   # e.g. the trailing window of a series: the kernel's loads
+        windows = windows.clone()  # need 16-byte alignment
+    return band_dft(windows, n_bins)
