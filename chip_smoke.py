@@ -95,7 +95,26 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
    plain version (B1, B2, B4, B5 bitwise, B3 within 1e-4 a window), times
    each call with its launches, device operations, busy share and peak
    memory, and holds each preset at window 1024 card against CPU;
-8. prints one JSON line with every kernel's record (launches summed over
+8. drives the host surface (`host_surface`), each path a main path of its
+   own with the counts reset before and read after: (k) `BatchFetcher` at
+   the flagship config over 500,000 bars at hop 1 (495,905 windows in 31
+   chunks), its cycle cache read back bitwise and the planted periods
+   found, ms a job, windows/s, busy share and peak memory, and the chunked
+   extraction against one unchunked call at 40,000 windows; (l)
+   `OnlineDriver` at its defaults through a card `Session` on 24,095 bars,
+   caught up and then 64 one-bar ticks (ms a tick, device operations a
+   tick), no repaint, the queue drained after every update, and an
+   FFT-ridge driver's rows bitwise equal to the batch decode; (m) the
+   bridge: `gpu_init`, the FFT family against numpy's float64 FFT,
+   `gpu_extract_cycles` for every method bitwise equal to
+   `extract_cycles`, eight batch jobs in flight at shape (a) bitwise equal
+   to the sync call (ms in submit against ms waiting), a template job
+   bitwise equal to `run_pipeline`, and the tick builder on 100,000
+   ticks; (n) `cli.main` `extract` (its cache byte-equal to
+   `BatchFetcher`'s), `v757 --csv` and `inspect`. Every B1-B5 call of the
+   recorded runs (not the 500,000-bar one) is held against its plain
+   version as in phase 7;
+9. prints one JSON line with every kernel's record (launches summed over
    every main path), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no
@@ -1390,7 +1409,8 @@ PRESET_TEXT_W1024 = ("time: dc(mode=0); extract: window=1024, top_k=6, method=mu
 
 
 def check_preset_calls(calls: KernelCalls, label: str) -> dict:
-    """Every recorded B1-B5 call of one preset run against its plain version
+    """Every recorded B1-B5 call of one run (a preset's, or a host-surface
+    path's; `label` prefixes the log line) against its plain version
     on the same inputs: B1, B2, B4 and B5 bitwise (every output and the
     final states), B3 per window within 1e-4 of its largest bin (a call on
     windows past `MAX_N`, which recombines the kernel's sub-window calls,
@@ -1416,11 +1436,11 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
             else:
                 ref, what = ps.band_dft_plain(*args, **kw), "its plain version"
             if out.shape != ref.shape:
-                raise AssertionError(f"presets {label}: B3 on {tuple(windows.shape)} gave "
+                raise AssertionError(f"{label}: B3 on {tuple(windows.shape)} gave "
                                      f"{tuple(out.shape)}, not {tuple(ref.shape)}")
             err = ((out - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
             if not (err <= 1e-4 and torch.isfinite(torch.view_as_real(out)).all()):
-                raise AssertionError(f"presets {label}: B3 on {tuple(windows.shape)} off "
+                raise AssertionError(f"{label}: B3 on {tuple(windows.shape)} off "
                                      f"{what} ({err:.3e})")
             if windows.shape[-1] > MAX_N:
                 key = (tuple(windows.shape), n_bins)
@@ -1444,7 +1464,7 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
                 ref = {**ref, **{f"state.{k}": v for k, v in ref_state._asdict().items()}}
         bad = [k for k in ref if got[k].dtype != ref[k].dtype or not torch.equal(got[k], ref[k])]
         if bad:
-            raise AssertionError(f"presets {label}: {name} on {tuple(args[0].shape)} differs "
+            raise AssertionError(f"{label}: {name} on {tuple(args[0].shape)} differs "
                                  f"from its plain version in {bad}")
     ps._dft_basis.cache_clear()          # the plain DFT's bases (up to 1 GB at 16384)
     held = [f"{name} bitwise" for name in count if name != "band_dft"]
@@ -1453,7 +1473,7 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
     for (shape, n_bins), err in long_b3.items():
         held.append(f"band_dft on {shape} windows past MAX_N, {n_bins} bins, against a "
                     f"float64 DFT within {err:.3e} of each window's largest bin (tol 1e-4)")
-    log(f"presets {label}: every kernel call of one run against its plain version on the same "
+    log(f"{label}: every kernel call of one run against its plain version on the same "
         f"inputs: {count}; " + ", ".join(held))
     return count
 
@@ -1593,12 +1613,9 @@ def model_presets(dev, tag, counters, reset_counts) -> dict:
     readings = {}
     for name, model, x_host, want in calls:
         x = torch.from_numpy(x_host).to(dev)
-        recorded = KernelCalls()    # the warm-up run (tables, plans), recorded
-        with recorded:
-            recorded.on = True
-            model.run(x)
-        check_preset_calls(recorded, name)
-        del recorded
+        _, calls = record_calls(lambda: model.run(x))   # the warm-up run (tables, plans)
+        check_preset_calls(calls, f"presets {name}")
+        del calls
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -1688,6 +1705,544 @@ def check_preset_output(name: str, out: dict, x: np.ndarray) -> None:
             f"{[round(v, 3) for v in newest.tolist()]}")
     else:
         log(f"presets {name}: every output finite and of its shape")
+
+
+# ---- phase 8: the host surface (bridge, session and job queue, caches,
+# drivers, CLI) ----
+
+# The reference fetcher's history (`WaveCyclesBatchFetcher.mq5:36`) at hop
+# 1, chunked as the JAX package chunks it; the chunk check's windows (3
+# chunks); the live driver's series (20,000 flagship windows) and ticks;
+# the tick builder's ticks; `cli v757`'s bars (512 frames).
+FETCH_BARS, FETCH_CHUNK, CHUNK_CHECK_WINDOWS = 500_000, 16_384, 40_000
+LIVE_BARS, LIVE_TICKS, TICK_COUNT, V757_CLI_BARS = WINDOW + 19_999, 64, 100_000, WINDOW + 511
+MUSIC_PATH, RIDGE_PATH = ("jacobi_eigh", "music_select"), ("band_dft",)
+
+
+def bits(a: np.ndarray) -> np.ndarray:
+    """The bit patterns of a float array, for a bitwise comparison."""
+    a = np.ascontiguousarray(a)
+    return a.view({8: np.int64, 4: np.int32}[a.itemsize])
+
+
+def record_calls(fn):
+    """`fn()` with every B1-B5 call recorded; returns (output, the calls)."""
+    calls = KernelCalls()
+    with calls:
+        calls.on = True
+        out = fn()
+    return out, calls
+
+
+def recorded(path_launches, name, fn, want):
+    """`path_launches(name, fn, want)` with every B1-B5 call recorded."""
+    return record_calls(lambda: path_launches(name, fn, want))
+
+
+def fetcher_job(dev, tag, path_launches) -> dict:
+    """(k) `BatchFetcher` at the flagship `ExtractConfig()` and
+    `ReconstructConfig()` over 500,000 planted bars at hop 1 (495,905
+    windows in 31 chunks of 16,384 windows, each after the first with a
+    warm lead of 1,200 bars), the cycle cache written to a temporary
+    directory: the job timed on the host clock (numpy in, cache file out;
+    median of 3 after a warm-up) with its extraction alone (CUDA events)
+    and the file's write alone (host clock), launches, busy share (one job
+    traced) and peak memory; the file read back bitwise equal to the
+    buffers; the planted periods (50 and 120 bars) in period1/period2.
+    Then chunked against unchunked at 40,000
+    windows (3 chunks) on the card, within `testing.attrs_mismatches`'s
+    MUSIC limits and the JAX package's own gate (1e-3 on fields 0-3) on
+    the slots `testing` resolves, every B1/B2 call of the chunked run
+    against its plain version."""
+    import tempfile
+
+    from wavespec_tpu_torch import ExtractConfig, ReconstructConfig, extract_cycles_batch
+    from wavespec_tpu_torch.pipeline import BatchFetcher, extract_cycles_batch_chunked
+    from wavespec_tpu_torch.runtime import (cycle_cache_filename, load_cycle_cache,
+                                            save_cycle_cache)
+    from wavespec_tpu_torch.testing import RESOLVED_FRACTION, attrs_mismatches, attrs_readings
+
+    cfg, rcfg = ExtractConfig(), ReconstructConfig()
+    x = planted_series(FETCH_BARS, SEED + 30)
+    nwin = FETCH_BARS - cfg.window + 1
+    n_chunks = -(-nwin // FETCH_CHUNK)
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fetcher = BatchFetcher(ecfg=cfg, rcfg=rcfg, cache_dir=tmp, device=dev)
+        fetcher.run(x)                          # warm-up: tables, plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        bufs = path_launches("(k) BatchFetcher", lambda: fetcher.run(x), MUSIC_PATH)
+        rec["peak"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        path = Path(tmp) / cycle_cache_filename("SYM", "M1", cfg.window, int(cfg.method),
+                                                cfg.ar_order, cfg.top_k)
+        back = load_cycle_cache(path)
+        differ = [k for k in bufs if not np.array_equal(bits(back[k]), bits(bufs[k]))]
+        size = path.stat().st_size
+        if differ or size != 12 + 160 * FETCH_BARS or bufs["wave1"].shape != (FETCH_BARS,):
+            raise AssertionError(f"(k) the cycle cache ({size} bytes) does not read back "
+                                 f"bitwise: {differ}")
+        last = min(100_000, nwin)
+        tail = np.stack([bufs["period1"][-last:], bufs["period2"][-last:]])
+        share = {w: float((np.abs(tail - w) <= 0.01 * w).any(0).mean()) for w in (50.0, 120.0)}
+        finite = all(np.isfinite(v).all() for v in bufs.values())
+        if not (finite and min(share.values()) >= 0.9):
+            raise AssertionError(f"(k) planted periods: share of the last {last} bars with "
+                                 f"a slot within 1% {share}, finite {finite}")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fetcher.run(x)
+            times.append((time.perf_counter() - t0) * 1e3)
+        rec["ms"] = statistics.median(times)
+        xd = torch.from_numpy(x).to(dev)
+        rec["extract_ms"] = cuda_ms(lambda: extract_cycles_batch_chunked(
+            xd, cfg, chunk_windows=FETCH_CHUNK), runs=3, warmup=1)
+        saves = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_cycle_cache(Path(tmp) / "again.bin", bufs)
+            saves.append((time.perf_counter() - t0) * 1e3)
+        rec["save_ms"] = statistics.median(saves)
+        rec["ops"], rec["dev_ms"] = profile_call(lambda: fetcher.run(x))
+    rec["windows_per_s"] = nwin / (rec["ms"] / 1e3)
+    log(f"(k) BatchFetcher, {FETCH_BARS} bars at hop 1: {nwin} windows in {n_chunks} chunks; "
+        f"cycle cache {size} bytes read back bitwise equal to the 20 buffers; planted periods "
+        f"on the last {last} bars: 50 in {100 * share[50.0]:.2f}%, 120 in "
+        f"{100 * share[120.0]:.2f}% of bars (a slot within 1%)")
+    log(f"(k) BatchFetcher job: {rec['ms']:.1f} ms a job (host clock, numpy in, cache file "
+        f"out; median of 3: {', '.join(f'{t:.1f}' for t in times)}), "
+        f"{rec['windows_per_s']:.0f} windows/s; extraction alone {rec['extract_ms']:.1f} ms "
+        f"(CUDA events, median of 3), the cache file's write alone {rec['save_ms']:.1f} ms "
+        f"(host clock, median of 3); {rec['ops']} device operations, device time "
+        f"{rec['dev_ms']:.1f} ms (traced), busy share {100 * rec['dev_ms'] / rec['ms']:.1f}%; "
+        f"peak memory {rec['peak']:.1f} MiB above the inputs {tag}")
+
+    x40 = torch.from_numpy(planted_series(cfg.window - 1 + CHUNK_CHECK_WINDOWS,
+                                          SEED + 31)).to(dev)
+    chunked, calls = recorded(
+        path_launches, "(k) chunked 40,000 windows",
+        lambda: extract_cycles_batch_chunked(x40, cfg, chunk_windows=FETCH_CHUNK), MUSIC_PATH)
+    check_preset_calls(calls, "host (k) chunked 40,000 windows")
+    del calls
+    whole = extract_cycles_batch(x40, cfg)
+    got, want = chunked.cpu().numpy(), whole.cpu().numpy()
+    bad = attrs_mismatches(got, want)
+    # JAX's own gate (1e-3 on fields 0-3) on the resolved slots, as
+    # `testing` resolves them: a weak noise slot's phase is not defined
+    amp = want[..., 0]
+    res = (amp > 0) & (amp >= RESOLVED_FRACTION * amp.max(axis=-1, keepdims=True))
+    core = np.abs(got[..., :4] - want[..., :4])
+    gate = np.allclose(got[res][:, :4], want[res][:, :4], rtol=1e-3, atol=1e-3)
+    differ = int((got != want).any(axis=(1, 2)).sum())
+    if bad or not gate:
+        raise AssertionError(f"(k) chunked vs unchunked at {CHUNK_CHECK_WINDOWS} windows: {bad}, "
+                             f"fields 0-3 of the resolved slots within 1e-3: {gate}")
+    use = attrs_readings(got, want)[1]
+    top = ", ".join(f"{k} {u:.3f}" for k, u in sorted(use.items(), key=lambda i: -i[1])[:3])
+    log(f"(k) chunked ({-(-CHUNK_CHECK_WINDOWS // FETCH_CHUNK)} chunks) against one unchunked "
+        f"call at {CHUNK_CHECK_WINDOWS} windows on the card: {differ} windows not bitwise equal; "
+        f"fields 0-3 of the {int(res.sum())} resolved slots within {core[res].max():.3e} (JAX's "
+        f"gate 1e-3; every slot {core.max():.3e}); within testing's MUSIC limits (share used: "
+        f"{top})")
+    return rec
+
+
+def timed_update(drv, bars) -> tuple[float, float]:
+    """(device ms, host ms) of one synchronised `drv.update(bars)`."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    drv.update(bars)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def online_driver(dev, tag, path_launches) -> dict:
+    """(l) `OnlineDriver` at its defaults (history_chunk 2000,
+    history_max_bars 5000, flagship config) routed through a card
+    `Session`, on 24,095 planted bars: updates until caught up (the first
+    one's B1/B2 calls held against their plain versions), then 64 one-bar
+    ticks, each synchronised and timed (CUDA events and host clock; the
+    first reported apart; the last 4 traced for device operations and
+    device time instead); `queue.pending() == 0`
+    after every update; the rows emitted before the ticks bitwise
+    unchanged after them. Then an FFT-ridge driver (the flagship band) on
+    the same bars and 8 ticks: its rows bitwise equal to the card's batch
+    `decode_causal` over the same windows (its first update's B3 calls
+    against their plain version)."""
+    from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig, decode_causal,
+                                    extract_cycles_batch)
+    from wavespec_tpu_torch.pipeline import OnlineDriver, Session
+    from wavespec_tpu_torch.runtime import Status
+
+    session = Session()
+    st = session.init(0, 64) if dev.type == "cuda" else session.init(0, 64, device=dev)
+    if st != Status.OK or session.device != dev:
+        raise AssertionError(f"(l) Session.init(0, 64): {st!r} on {session.device}")
+    x = planted_series(LIVE_BARS + LIVE_TICKS, SEED + 32).astype(np.float64)
+    n0, profiled = LIVE_BARS, 4
+    rec = {}
+
+    def catch_up(drv, label):
+        """Updates until the driver has every bar of x[:n0]; the first
+        one's kernel calls recorded and held."""
+        steps = 0
+        while drv.prev_calculated < n0:
+            if steps == 0:
+                _, calls = record_calls(lambda: drv.update(x[:n0]))
+                check_preset_calls(calls, f"host (l) {label}, first update")
+                del calls
+            else:
+                drv.update(x[:n0])
+            steps += 1
+            if session.queue.pending():
+                raise AssertionError(f"(l) {label}: {session.queue.pending()} jobs left")
+        return steps
+
+    def music_path():
+        drv = OnlineDriver(ecfg=ExtractConfig(), rcfg=ReconstructConfig(), session=session)
+        rec["updates"] = catch_up(drv, "MUSIC")
+        snap = {k: v.copy() for k, v in drv.buffers().items() if k != "calculated"}
+        dev_ms, host_ms = [], []
+        for i in range(1, LIVE_TICKS - profiled + 1):
+            d, h = timed_update(drv, x[:n0 + i])
+            dev_ms.append(d)
+            host_ms.append(h)
+            if session.queue.pending() or drv.prev_calculated != n0 + i:
+                raise AssertionError(f"(l) tick {i}: cursor {drv.prev_calculated}, "
+                                     f"{session.queue.pending()} jobs left")
+        ops = [profile_call(lambda: drv.update(x[:n0 + i]))
+               for i in range(LIVE_TICKS - profiled + 1, LIVE_TICKS + 1)]
+        out = drv.buffers()
+        repainted = [k for k, v in snap.items() if not np.array_equal(bits(out[k][:len(v)]),
+                                                                      bits(v))]
+        if repainted or int(out["calculated"]) != n0 + LIVE_TICKS:
+            raise AssertionError(f"(l) rows emitted before the ticks changed: {repainted}")
+        return out, snap, dev_ms, host_ms, ops
+
+    out, snap, dev_ms, host_ms, ops = path_launches("(l) OnlineDriver MUSIC", music_path,
+                                                    MUSIC_PATH)
+    # the first tick meets the one-window shapes first (plans, allocations)
+    rec.update(first_tick_ms=host_ms[0], tick_ms=statistics.median(host_ms[1:]),
+               tick_dev_ms=statistics.median(dev_ms[1:]),
+               ops=statistics.mean(o for o, _ in ops), busy_ms=statistics.mean(d for _, d in ops))
+    tail = out["period"][-LIVE_TICKS:]
+    share = {w: float((np.abs(tail - w) <= 0.01 * w).any(axis=1).mean()) for w in (50.0, 120.0)}
+    if min(share.values()) < 0.9:
+        raise AssertionError(f"(l) the ticks' rows miss a planted cycle: {share}")
+    log(f"(l) OnlineDriver (history_chunk 2000, history_max_bars 5000, flagship) through a "
+        f"card Session on {n0} bars: caught up in {rec['updates']} updates (replaying the "
+        f"last 5000 bars), then {LIVE_TICKS} one-bar ticks; queue.pending() == 0 "
+        f"after every update; the {len(snap['wave'])} rows emitted before the ticks bitwise "
+        f"unchanged after them; newest periods {[round(float(p), 3) for p in tail[-1]]}")
+    log(f"(l) one-bar tick: {rec['tick_ms']:.3f} ms host clock, {rec['tick_dev_ms']:.3f} ms "
+        f"between CUDA events (medians of {len(host_ms) - 1} synchronised ticks after the "
+        f"first; host {min(host_ms[1:]):.3f}-{max(host_ms[1:]):.3f}; the first tick "
+        f"{rec['first_tick_ms']:.3f}); {rec['ops']:.0f} device operations and "
+        f"{rec['busy_ms']:.3f} ms of device time a tick (traced, mean of {profiled}), busy "
+        f"share {100 * rec['busy_ms'] / rec['tick_ms']:.1f}% {tag}")
+
+    ridge = dataclasses.replace(ExtractConfig(), method=Method.FFT_RIDGE)
+    rcfg = ReconstructConfig(music_only=False)
+
+    def ridge_path():
+        drv = OnlineDriver(ecfg=ridge, rcfg=rcfg, session=session)
+        catch_up(drv, "FFT ridge")
+        for i in range(1, 9):
+            drv.update(x[:n0 + i])
+        return drv.buffers()
+
+    rows = path_launches("(l) OnlineDriver ridge", ridge_path, RIDGE_PATH)
+    first, n = n0 - 5000, n0 + 8
+    span = torch.from_numpy(x[first - ridge.window + 1:n].astype(np.float32)).to(dev)
+    dec = decode_causal(extract_cycles_batch(span, ridge), rcfg)
+    keys = ("wave", "period", "eta_seconds", "phase", "energy", "coherence", "snr_db", "score",
+            "eigen_ratio", "eta_conf")
+    differ = [k for k in keys if not np.array_equal(bits(rows[k][first:n]),
+                                                    bits(dec[k].cpu().numpy()))]
+    if differ or rows["wave"][:first].any():
+        raise AssertionError(f"(l) the ridge driver's rows differ from the batch decode: {differ}")
+    log(f"(l) FFT-ridge OnlineDriver through the same Session: its {n - first} rows (catch-up "
+        f"and 8 ticks) bitwise equal to the card's batch decode_causal over the same windows "
+        f"in all {len(keys)} fields")
+    session.shutdown()
+    return rec
+
+
+def poll(try_get, jid):
+    """Poll a bridge try_get until the job is ready; returns its result."""
+    while True:
+        ready, out = try_get(jid)
+        if ready:
+            return out
+        time.sleep(1e-4)
+
+
+def bridge_on_card(dev, tag, path_launches) -> dict:
+    """(m) the bridge on the card: `gpu_init(0, 64)` OK and a `Session` at
+    index `device_count()` BAD_ARGS; the FFT family at 4096 and 1000
+    against numpy's float64 FFT (forward within 1e-5 of the largest bin,
+    the inverse of the same bins within 1e-5 of the largest sample, the
+    async forward bitwise equal to the sync one); `gpu_extract_cycles` for
+    methods -1/0/1/2 at window 4096 bitwise equal to the port's
+    `extract_cycles` on the same tensor; `gpu_submit_extract_cycles_batch`
+    at shape (a) (hop 64, 36,800 bars) with eight jobs in flight, each
+    bitwise equal to the synchronous `extract_cycles_batch`, and the time
+    spent in `submit` against the time waiting in `try_get`; one template
+    job (`build_wave_preset_template`'s text, MUSIC at window 4096, segments
+    of 1024) bitwise equal to `run_pipeline`; `mt_gpu_wave_build_tick_series`
+    on 100,000 ticks against the same builder on the CPU. Every B1-B3 call
+    of the path held against its plain version."""
+    from wavespec_tpu_torch import ExtractConfig, Method, extract_cycles, extract_cycles_batch
+    from wavespec_tpu_torch import bridge
+    from wavespec_tpu_torch.feeds import build_tick_series
+    from wavespec_tpu_torch.pipeline import (Session, build_wave_preset_template, parse_preset,
+                                             run_pipeline)
+    from wavespec_tpu_torch.runtime import Status
+
+    on_card = dev.type == "cuda"
+    bridge.gpu_shutdown()
+    st = bridge.gpu_init(0, 64) if on_card else bridge.gpu_init(0, 64, device=dev)
+    count = torch.cuda.device_count() if on_card else 1
+    bad = Session().init(count, 64) if on_card else Session().init(count, 64, device=dev)
+    if st != Status.OK or bad != Status.BAD_ARGS or bridge._session.device != dev:
+        raise AssertionError(f"(m) gpu_init(0, 64) {st!r}, Session at index {count} {bad!r}")
+    rec = {}
+    rng = np.random.default_rng(SEED + 33)
+
+    def fft_family():
+        errs = {}
+        for n in (4096, 1000):
+            x = np.sin(2 * np.pi * np.arange(n) / 50) + 0.1 * rng.standard_normal(n)
+            fwd = bridge.gpu_fft_real_forward(x)
+            bins = fwd[0::2].astype(np.float64) + 1j * fwd[1::2]
+            ref = np.fft.rfft(x.astype(np.float32).astype(np.float64))[:n // 2]
+            inv = bridge.gpu_fft_real_inverse(fwd)
+            ref_inv = np.fft.irfft(np.concatenate([bins, [0.0]]), n)
+            jid = bridge.gpu_submit_fft_real_forward(x)
+            async_fwd = poll(bridge.gpu_try_get_result, jid)
+            bridge.gpu_free_job(jid)
+            errs[n] = (np.abs(bins - ref).max() / np.abs(ref).max(),
+                       np.abs(inv - ref_inv).max() / np.abs(ref_inv).max())
+            if not (fwd.shape == (n,) and inv.shape == (n,) and max(errs[n]) <= 1e-5
+                    and np.array_equal(bits(async_fwd), bits(fwd))):
+                raise AssertionError(f"(m) FFT family at {n}: forward/inverse {errs[n]}, "
+                                     f"async equal to sync {np.array_equal(async_fwd, fwd)}")
+        return errs
+
+    xw = planted_series(WINDOW, SEED + 34)
+    xa = [planted_series(WINDOW + 511 * 64, SEED + 40 + j) for j in range(8)]
+    text = build_wave_preset_template(segment_len=1024, overlap=-1, mix_mode=0, top_cycles=4,
+                                      min_period=9, max_period=200, wave_slots=2,
+                                      stage_time="dc(mode=0)", window=WINDOW)
+    xs = planted_series(6000, SEED + 35)
+
+    def path():
+        errs = fft_family()
+        flat = {m: bridge.gpu_extract_cycles(xw, method=m) for m in (-1, 0, 1, 2)}
+        jid = bridge.gpu_submit_extract_cycles_batch(xa[0], WINDOW, hop=64)
+        batch0 = poll(bridge.gpu_try_get_cycles_batch, jid)
+        bridge.gpu_free_job(jid)
+        jid = bridge.mt_gpu_wave_submit_template_job(text, xs)
+        job = poll(bridge.mt_gpu_wave_try_get_template_job, jid)
+        bridge.mt_gpu_wave_free_template_job(jid)
+        return errs, flat, batch0, job
+
+    (errs, flat, batch0, job), calls = recorded(
+        path_launches, "(m) bridge", path, ("jacobi_eigh", "music_select", "band_dft"))
+    check_preset_calls(calls, "host (m) bridge")
+    del calls
+    xt = torch.from_numpy(xw).to(dev)
+    for m, got in flat.items():
+        want = extract_cycles(xt, ExtractConfig(method=Method(m))).cpu().numpy().reshape(-1)
+        if got.shape != (60,) or not np.array_equal(bits(got), bits(want)):
+            raise AssertionError(f"(m) gpu_extract_cycles method {m} differs from extract_cycles")
+    periods = np.sort(flat[1].reshape(4, 15)[:2, 2])
+    if not np.allclose(periods, [50.0, 120.0], rtol=1e-2):
+        raise AssertionError(f"(m) MUSIC record's top-2 periods {periods}")
+    log(f"(m) gpu_init(0, 64) OK, Session at index {count} BAD_ARGS; FFT family against numpy "
+        f"float64: " + ", ".join(f"n={n} forward {f:.2e}, inverse {i:.2e}"
+                                 for n, (f, i) in errs.items())
+        + " of the largest (tol 1e-5), the async forward bitwise equal to the sync one; "
+        f"gpu_extract_cycles methods -1/0/1/2 at window {WINDOW} bitwise equal to "
+        f"extract_cycles (MUSIC's top-2 periods {periods.round(3).tolist()})")
+
+    sync = [extract_cycles_batch(torch.from_numpy(a).to(dev), ExtractConfig(), hop=64)
+            for a in xa]
+    if not np.array_equal(bits(batch0), bits(sync[0].cpu().numpy())):
+        raise AssertionError("(m) the batch job differs from extract_cycles_batch")
+
+    def sync_job(a):
+        return extract_cycles_batch(torch.from_numpy(a).to(dev), ExtractConfig(),
+                                    hop=64).cpu().numpy()
+
+    sync_ms = []
+    for a in xa[:3]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_job(a)
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    submit_ms, wait_ms, jids = [], [], []
+    t_all = time.perf_counter()
+    for a in xa:
+        t0 = time.perf_counter()
+        jids.append(bridge.gpu_submit_extract_cycles_batch(a, WINDOW, hop=64))
+        submit_ms.append((time.perf_counter() - t0) * 1e3)
+    for jid, want in zip(jids, sync):
+        t0 = time.perf_counter()
+        got = poll(bridge.gpu_try_get_cycles_batch, jid)
+        wait_ms.append((time.perf_counter() - t0) * 1e3)
+        bridge.gpu_free_job(jid)
+        if not np.array_equal(bits(got), bits(want.cpu().numpy())):
+            raise AssertionError(f"(m) batch job {jid} differs from extract_cycles_batch")
+    total_ms = (time.perf_counter() - t_all) * 1e3
+    if bridge._queue().pending():
+        raise AssertionError("(m) jobs left in the queue")
+    rec.update(submit_ms=statistics.median(submit_ms), wait_ms=sum(wait_ms),
+               sync_ms=statistics.median(sync_ms), total_ms=total_ms)
+    log(f"(m) gpu_submit_extract_cycles_batch at shape (a) (hop 64, {xa[0].size} bars, 512 "
+        f"windows), 8 jobs in flight, each bitwise equal to extract_cycles_batch: submit "
+        f"{rec['submit_ms']:.3f} ms a job (median; {min(submit_ms):.3f}-{max(submit_ms):.3f}), "
+        f"then {rec['wait_ms']:.3f} ms in try_get until all were ready "
+        f"({', '.join(f'{w:.3f}' for w in wait_ms)}); {total_ms:.3f} ms for the 8; a "
+        f"synchronous job with its host copy {rec['sync_ms']:.3f} ms (median of 3), so submit "
+        f"blocks for {100 * rec['submit_ms'] / rec['sync_ms']:.0f}% of a job {tag}")
+
+    ref = run_pipeline(torch.from_numpy(xs).to(dev), parse_preset(text))
+    inter = torch.stack([ref["fft"].real, ref["fft"].imag], -1).reshape(-1).cpu().numpy()
+    fields = {"fft": inter, "phase": ref["phase"], "unwrapped": ref["unwrapped"],
+              "group_delay": ref["group_delay"], "cycles": ref["attrs"],
+              "wave_values": ref["wave_values"], "wave_periods": ref["wave_periods"],
+              "wave_colors": ref["wave_colors"]}
+    differ = [k for k, v in fields.items()
+              if not np.array_equal(bits(getattr(job, k)),
+                                    bits(v if isinstance(v, np.ndarray) else v.cpu().numpy()))]
+    if differ or job.kalman_value != float(ref["kalman_value"]):
+        raise AssertionError(f"(m) the template job differs from run_pipeline in {differ}")
+    log(f"(m) template job ({text!r}) on {xs.size} bars: every field bitwise equal to "
+        f"run_pipeline; fft {job.fft.shape} interleaved; cycles' periods "
+        f"{np.round(job.cycles[:, 2], 3).tolist()}")
+
+    times = 1.767e9 + np.cumsum(rng.exponential(0.5, TICK_COUNT))
+    prices = 1.1 + np.cumsum(1e-4 * rng.standard_normal(TICK_COUNT))
+    tick_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = bridge.mt_gpu_wave_build_tick_series(prices, times, WINDOW, 1.0,
+                                                   smoothing_window=3)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    plain = bridge.mt_gpu_wave_build_tick_series(prices, times, WINDOW, 1.0)
+    cpu = dict(window_len=WINDOW, interval_seconds=1.0, device="cpu")
+    want, want_plain = (build_tick_series(prices, times, smoothing_window=k, **cpu)
+                        for k in (3, 1))
+    eps = float(np.finfo(np.float32).eps)
+    tol = 4 * eps * np.abs(want).max() * (WINDOW + 3) / 3
+    err = float(np.abs(got - want).max())
+    if not (np.array_equal(plain, want_plain) and err <= tol and got.shape == (WINDOW,)):
+        raise AssertionError(f"(m) tick series: grid equal {np.array_equal(plain, want_plain)}, "
+                             f"smoothed within {err:.3e} (tol {tol:.3e})")
+    rec["tick_series_ms"] = statistics.median(tick_ms)
+    log(f"(m) mt_gpu_wave_build_tick_series on {TICK_COUNT} ticks -> {WINDOW} bars: the grid "
+        f"lookup equal to the CPU's, the 3-bar average within {err:.3e} (tol {tol:.3e}); "
+        f"{rec['tick_series_ms']:.3f} ms a call (host clock, median of 3) {tag}")
+    bridge.gpu_shutdown()
+    return rec
+
+
+def cli_in_process(dev, tag, path_launches) -> dict:
+    """(n) `cli.main` in process: `extract` (flagship defaults, hop 1) on a
+    FeedCache `.bin` of 24,095 planted bars, its cycle cache byte-equal to
+    `BatchFetcher`'s on the same bars; `v757 --csv` on 4,607 bars (512
+    frames); `inspect` on both files. Each command's B1-B5 calls held
+    against their plain versions."""
+    import contextlib
+    import io
+    import tempfile
+
+    from wavespec_tpu_torch import ExtractConfig, ReconstructConfig, cli
+    from wavespec_tpu_torch.pipeline import BatchFetcher
+    from wavespec_tpu_torch.runtime import save_feed_cache
+
+    device_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+
+    def run(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        if rc != 0:
+            raise AssertionError(f"(n) cli {argv[0]} returned {rc}")
+        return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        x = planted_series(LIVE_BARS, SEED + 36)
+        feed = tmp / "WaveSpecZZ_cache_SYM_M1.bin"
+        save_feed_cache(feed, x[::-1].astype(np.float64))
+        t0 = time.perf_counter()
+        (out, calls) = recorded(path_launches, "(n) cli extract",
+                                lambda: run(["extract", str(feed), "--out-dir", str(tmp / "cli"),
+                                             "--csv", "waves.csv", *device_args]), MUSIC_PATH)
+        rec["extract_ms"] = (time.perf_counter() - t0) * 1e3
+        check_preset_calls(calls, "host (n) cli extract")
+        del calls
+        (tmp / "fetch").mkdir()
+        BatchFetcher(ecfg=ExtractConfig(), rcfg=ReconstructConfig(music_only=True),
+                     cache_dir=tmp / "fetch", device=dev).run(x)
+        name = "WaveSpecZZ_cycles_SYM_M1_w4096_m1_ar10_k4.bin"
+        a, b = (tmp / "cli" / name).read_bytes(), (tmp / "fetch" / name).read_bytes()
+        csv = (tmp / "cli" / "waves.csv").read_text().splitlines()
+        if a != b or out["bars"] != LIVE_BARS or len(csv) != LIVE_BARS + 1:
+            raise AssertionError(f"(n) cli extract: cache equal to BatchFetcher's {a == b}, "
+                                 f"{out}, {len(csv)} CSV lines")
+        short = tmp / "v757.bin"
+        save_feed_cache(short, bench_series(1, V757_CLI_BARS - WINDOW + 1)[0][::-1]
+                        .astype(np.float64))
+        t0 = time.perf_counter()
+        (v7, calls) = recorded(path_launches, "(n) cli v757",
+                               lambda: run(["v757", str(short), "--out-dir", str(tmp / "v7"),
+                                            "--csv", "states.csv", *device_args]),
+                               ("band_dft", "tracker", "v757_tail"))
+        rec["v757_ms"] = (time.perf_counter() - t0) * 1e3
+        check_preset_calls(calls, "host (n) cli v757")
+        del calls
+        states = (tmp / "v7" / "states.csv").read_text().splitlines()
+        frames = V757_CLI_BARS - WINDOW + 1
+        if (v7["frames"] != frames or v7["frames_with_cycles"] == 0 or len(states) != frames + 1
+                or not states[0].startswith("Time,BarIndex,C1_State")):
+            raise AssertionError(f"(n) cli v757: {v7}, {len(states)} CSV lines")
+        info = [run(["inspect", str(p)]) for p in (tmp / "cli" / name, feed)]
+        if (info[0]["kind"], info[0]["bars"], info[1]["kind"], info[1]["bars"]) != (
+                "cycle_cache", LIVE_BARS, "feed_cache", LIVE_BARS):
+            raise AssertionError(f"(n) cli inspect: {info}")
+    log(f"(n) cli extract on a {LIVE_BARS}-bar FeedCache file: {out}; its cycle cache "
+        f"({len(a)} bytes) byte-equal to BatchFetcher's on the same bars; {len(csv) - 1} CSV rows; "
+        f"{rec['extract_ms']:.0f} ms with recording (host clock)")
+    log(f"(n) cli v757 --csv on {V757_CLI_BARS} bars: {v7}, {len(states) - 1} state rows; "
+        f"inspect: {info[0]}, {info[1]}")
+    return rec
+
+
+def host_surface(dev, tag, counters, reset_counts) -> dict:
+    """Phase 8: (k) `BatchFetcher` at 500,000 bars, (l) `OnlineDriver`
+    through a card `Session`, (m) the bridge, (n) the CLI in process; each
+    path a main path of its own with every launch count set to 0 just
+    before and read just after (returned per path)."""
+    launches = {}
+    path_launches = _path_launches(launches, counters, reset_counts)
+    readings = {"k": fetcher_job(dev, tag, path_launches),
+                "l": online_driver(dev, tag, path_launches),
+                "m": bridge_on_card(dev, tag, path_launches),
+                "n": cli_in_process(dev, tag, path_launches)}
+    log(f"host surface launches by path: {launches}")
+    return {"launches": launches, "readings": readings}
 
 
 def main() -> None:
@@ -2106,12 +2661,14 @@ def main() -> None:
     live = live_v757(dev, tag, counters, reset_counts)
     # ---- 7. the model presets, each a main path of its own ----
     presets = model_presets(dev, tag, counters, reset_counts)
+    # ---- 8. the host surface, each a main path of its own ----
+    host = host_surface(dev, tag, counters, reset_counts)
     for path in (*methods["launches"].values(), *live["launches"].values(),
-                 *presets["launches"].values()):
+                 *presets["launches"].values(), *host["launches"].values()):
         for k, n in path.items():
             launches[k] += n
 
-    # ---- 8. the kernel records ----
+    # ---- 9. the kernel records ----
     sources = {
         "jacobi_eigh": "wavespec_tpu/kernels/jacobi_pallas.py:121",
         "music_select": "wavespec_tpu/kernels/music_select_pallas.py:214",

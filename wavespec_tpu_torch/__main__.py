@@ -1,0 +1,3 @@
+from wavespec_tpu_torch.cli import main
+
+raise SystemExit(main())
