@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
+It builds the port's six CUDA kernels from `wavespec_tpu_torch/csrc/`
 (one nvcc per source, all started together), then:
 
 1. prints the card, its power limit, the TF32 switches (both off) and the
@@ -45,12 +45,23 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
      (`testing.tracker_stream`, `testing.tail_stream`);
    - B4 and B5 timed again on shape (c)'s inputs tiled 8 times (1024
      symbols, the online fleet's size);
+   - H1 hopped band DFT (`check_hopped_dft`): against its plain version
+     within 1e-6 of each call's largest bin and against the float64 rfft
+     of every window within 2e-6, at the JAX test's (window, hop) shapes,
+     at hops of 128 and more, at MUSIC's seeds (a) and the ridge cells (d)
+     and (e); bitwise append-invariant, a [4, L] batch bitwise equal to
+     each series alone, a slice at an odd float offset bitwise equal to
+     its copy; timed at (a), (d) and (e) beside `torch.stft`,
+     `torch.fft.rfft` over the frames, the framed route (framing + B3)
+     and its bound;
 3. runs the port on the golden fixture `tests/fixtures/golden_extract.npz`
    and holds it to the recorded output;
 4. drives the two main paths, each with every launch count set to 0
    just before and read just after: the flagship MUSIC step,
    `extract_cycles_batch` + `decode_causal`, on planted-cycle series at
-   (a) hop 64, 512 windows and (b) hop 1, 20,000 windows; then the v7.57
+   (a) hop 64, 512 windows (seeds from H1) and (b) hop 1, 20,000 windows
+   (seeds from cuFFT over the frames: hop 1 is not eligible), step (a)
+   also timed on the framed seed route; then the v7.57
    analytics `run_v757_batch` at shape (c) (framed route) on `bench.py`'s
    planted series. It checks shapes, finiteness and the planted periods, holds
    shape (a) and the first 8 symbols of shape (c) against the same port
@@ -61,7 +72,9 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
 5. drives the extraction entry point's other branches, each a main path
    of its own with the counts reset before and read after
    (`extraction_methods`): the golden fixture's FFT-ridge attrs, FFT
-   ridge at shapes (d) and (e) and with EHLERS + Blackman and LINEAR,
+   ridge at shapes (d) and (e) on the hopped route (H1) and on the framed
+   one (B3), each path's launches, busy share and peak memory, and with
+   EHLERS + Blackman and LINEAR,
    ESPRIT, AUTO, MUSIC without its high-pass and with the signal gate at
    shape (f), and `extract_cycles`; each against the port on the CPU and
    the planted periods, with windows/s, launches a call, B3 at the ridge
@@ -102,6 +115,8 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
    found, ms a job, windows/s, busy share and peak memory, and the chunked
    extraction against one unchunked call at 40,000 windows; (l)
    `OnlineDriver` at its defaults through a card `Session` on 24,095 bars,
+   and the chunked driver on the hopped route (FFT ridge at hop 16, chunks
+   on and off the 128-sample grid),
    caught up and then 64 one-bar ticks (ms a tick, device operations a
    tick), no repaint, the queue drained after every update, and an
    FFT-ridge driver's rows bitwise equal to the batch decode; (m) the
@@ -111,9 +126,9 @@ It builds the port's five CUDA kernels from `wavespec_tpu_torch/csrc/`
    to the sync call (ms in submit against ms waiting), a template job
    bitwise equal to `run_pipeline`, and the tick builder on 100,000
    ticks; (n) `cli.main` `extract` (its cache byte-equal to
-   `BatchFetcher`'s), `v757 --csv` and `inspect`. Every B1-B5 call of the
-   recorded runs (not the 500,000-bar one) is held against its plain
-   version as in phase 7;
+   `BatchFetcher`'s), `v757 --csv` and `inspect`. Every B1-B5 and H1 call
+   of the recorded runs (not the 500,000-bar one) is held against its
+   plain version as in phase 7;
 9. prints one JSON line with every kernel's record (launches summed over
    every main path), then, last, ``{"ok": true, "device": {...}}``.
 
@@ -451,13 +466,16 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
     - the golden fixture's FFT-ridge attrs at the JAX package's 1e-4;
     - FFT ridge at `bench.py`'s framed cell (d), window 4096, top_k 8,
       band [18, 200], hop 16, 4096 windows, and at its hopped cell's
-      shape (e), 16384 windows, on the framed route (the hopped DFT is
-      not ported, ROADMAP A3); at (d) also with EHLERS (trend 1024) and
-      a Blackman taper, and with LINEAR;
+      shape (e), 16384 windows, each on the hopped route (kernel H1, the
+      default, as in the JAX package) and on the framed route
+      (`use_hopped_dft=False`: framing, then kernel B3); at (d) also with
+      EHLERS (trend 1024) and a Blackman taper, and with LINEAR (framed);
     - ESPRIT and AUTO at the flagship configuration (f), window 4096,
       top_k 4, band [9, 200], ar_order 10, hop 64, 512 windows; MUSIC
-      there with `music_highpass=False` (the in-window branch) and with
-      `music_signal_gate=2.0`;
+      there with `music_highpass=False` (the in-window branch, seeds from
+      B3) and with `music_signal_gate=2.0` (the fast path, seeds from H1);
+    each path must launch the kernels of its route and not the other
+    route's DFT;
     - `extract_cycles` on one window (MUSIC, ESPRIT).
     The planted periods 50 and 120 must be found: by the ridge at their
     nearest bins on the newest window; by the other methods with a median
@@ -468,7 +486,9 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
     largest median miss read on these series on the CPU: 3.5% (read 1.7%)
     and 2.5% (read 1.15%).
     Then the timings (CUDA events, median of 5 after warm-up): windows/s
-    and hand-kernel launches per call of each path, B3 at the ridge cells
+    and hand-kernel launches per call of each path, its busy share (device
+    time of one call traced by `torch.profiler` over the untraced call)
+    and peak memory, B3 at the ridge cells
     (d) and (e) beside `torch.fft.rfft` + slice and its bytes bound, B1 at
     ESPRIT's two shapes beside `torch.linalg.eigh` and its bound, and the
     Durand-Kerner root finder's launches and host time."""
@@ -479,6 +499,7 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
     from wavespec_tpu_torch.analyze.music import _auto_decimation, _autocov_toeplitz, _decimate_box
     from wavespec_tpu_torch.extract import DetrendMode, extractor, frame_series
     from wavespec_tpu_torch.kernels import band_dft as kb
+    from wavespec_tpu_torch.kernels import hopped_dft as kh
     from wavespec_tpu_torch.kernels import jacobi as kj
     from wavespec_tpu_torch.ops.spectrum import band_dft_plain
     from wavespec_tpu_torch.ops.windows import WindowType
@@ -500,27 +521,45 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
                           method=Method.FFT_RIDGE)
     flag = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
                          method=Method.MUSIC, ar_order=10)
+    # (config, hop, windows, period tolerance, series seed): each route of a
+    # ridge cell on the same series
     paths = {
-        "ridge (d)": (ridge, 16, 4096, 1e-2),
-        "ridge (e), framed route": (ridge, 16, 16384, 1e-2),
+        "ridge (d)": (ridge, 16, 4096, 1e-2, 0),
+        "ridge (d), framed route": (dataclasses.replace(ridge, use_hopped_dft=False),
+                                    16, 4096, 1e-2, 0),
+        "ridge (e)": (ridge, 16, 16384, 1e-2, 1),
+        "ridge (e), framed route": (dataclasses.replace(ridge, use_hopped_dft=False),
+                                    16, 16384, 1e-2, 1),
         "ridge EHLERS + Blackman (d)": (dataclasses.replace(
             ridge, detrend=DetrendMode.EHLERS, trend_period=1024,
-            taper=WindowType.BLACKMAN), 16, 4096, 1e-2),
+            taper=WindowType.BLACKMAN), 16, 4096, 1e-2, 2),
         "ridge LINEAR (d)": (dataclasses.replace(ridge, detrend=DetrendMode.LINEAR),
-                             16, 4096, 1e-2),
-        "ESPRIT (f)": (dataclasses.replace(flag, method=Method.ESPRIT), 64, 512, 3.5e-2),
-        "AUTO (f)": (dataclasses.replace(flag, method=Method.AUTO), 64, 512, 1e-2),
+                             16, 4096, 1e-2, 3),
+        "ESPRIT (f)": (dataclasses.replace(flag, method=Method.ESPRIT), 64, 512, 3.5e-2, 4),
+        "AUTO (f)": (dataclasses.replace(flag, method=Method.AUTO), 64, 512, 1e-2, 5),
         "MUSIC music_highpass=False (f)": (dataclasses.replace(flag, music_highpass=False),
-                                           64, 512, 2.5e-2),
+                                           64, 512, 2.5e-2, 6),
         "MUSIC music_signal_gate=2.0 (f)": (dataclasses.replace(flag, music_signal_gate=2.0),
-                                            64, 512, 1e-2),
+                                            64, 512, 1e-2, 7),
     }
-    # the kernels each path runs: MUSIC's series-level fast path takes its
-    # seeds from cuFFT, its in-window branch from B3
-    expect = {Method.FFT_RIDGE: ("band_dft",), Method.ESPRIT: ("jacobi_eigh",),
-              Method.AUTO: ("jacobi_eigh", "music_select", "band_dft")}
-    launches, series = {}, {}
-    for i, (name, (cfg, hop, nwin, rtol)) in enumerate(paths.items()):
+    def expect(cfg, hop):
+        """(the kernels a path runs, the kernels it must not run): the
+        series-level spectrum (the ridge's, MUSIC's fast-path seeds) from
+        H1 where `use_hopped_dft` and the hop allow it, else from B3 over
+        the frames (ridge, MUSIC's in-window branch, AUTO)."""
+        plain = cfg.detrend == DetrendMode.NONE and cfg.taper == WindowType.NONE
+        hopped = cfg.use_hopped_dft and kh.hopped_eligible(cfg.window, hop) and plain
+        subspace = ("jacobi_eigh", "music_select")
+        if cfg.method == Method.FFT_RIDGE:
+            return (("hopped_dft",), ("band_dft",)) if hopped else (("band_dft",), ("hopped_dft",))
+        if cfg.method == Method.ESPRIT:
+            return ("jacobi_eigh",), ("hopped_dft", "band_dft")
+        if cfg.method == Method.MUSIC and cfg.music_highpass and hopped:
+            return (*subspace, "hopped_dft"), ("band_dft",)
+        return (*subspace, "band_dft"), ("hopped_dft",)
+
+    launches, series, route = {}, {}, {}
+    for name, (cfg, hop, nwin, rtol, i) in paths.items():
         x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, SEED + 10 + i)).to(dev)
         series[name] = x
         extract_cycles_batch(x, cfg, hop=hop)              # warm-up: tables, plans
@@ -529,11 +568,11 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
         attrs = extract_cycles_batch(x, cfg, hop=hop)
         torch.cuda.synchronize()
         launches[name] = {k: fn.launches for k, fn in counters.items() if fn.launches}
-        want = expect.get(cfg.method, ("jacobi_eigh", "music_select")
-                          + (() if cfg.music_highpass else ("band_dft",)))
-        if any(launches[name].get(k, 0) == 0 for k in want):
-            raise AssertionError(f"{name}: a kernel of its path was not launched "
-                                 f"{launches[name]}")
+        want, not_want = expect(cfg, hop)
+        if (any(launches[name].get(k, 0) == 0 for k in want)
+                or any(launches[name].get(k, 0) for k in not_want)):
+            raise AssertionError(f"{name}: launched {launches[name]}; its route runs {want} "
+                                 f"and not {not_want}")
         if tuple(attrs.shape) != (nwin, cfg.top_k, 15) or not torch.isfinite(attrs).all():
             raise AssertionError(f"{name}: attrs {tuple(attrs.shape)} not finite/"
                                  f"[{nwin}, {cfg.top_k}, 15]")
@@ -557,6 +596,15 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
         if bad:
             raise AssertionError(f"{name}: card vs CPU on the first 8 windows: {bad}")
         ms = cuda_ms(lambda: extract_cycles_batch(x, cfg, hop=hop), warmup=1)
+        n_ops, dev_ms = profile_call(lambda: extract_cycles_batch(x, cfg, hop=hop))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        extract_cycles_batch(x, cfg, hop=hop)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        route[name] = dict(ms=ms, windows_per_s=nwin / (ms / 1e3), ops=n_ops, device_ms=dev_ms,
+                           busy=dev_ms / ms, peak_mib=peak)
         held = ("the nearest bins of both on the newest window" if not period_err else
                 "median relative miss over the windows " + ", ".join(
                     f"{p:g}: {e:.4f}" for p, e in period_err.items()) + f" (tol {rtol:g})")
@@ -564,10 +612,9 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
             f"window {', '.join(f'{p:.3f}' for p in sorted(found)[:8])}); card agrees with the CPU "
             f"port on the first 8 windows within the {cfg.method.name} limits; hand-kernel "
             f"launches a call {launches[name]}; {ms:.3f} ms a call, {nwin / (ms / 1e3):.1f} "
-            f"windows/s (median of 5) {tag}")
-        if name.startswith("ridge (e)"):
-            log("ridge (e): the framed route (every window framed, then kernel B3): the "
-                "JAX package's hopped DFT for this cell is not ported (ROADMAP A3)")
+            f"windows/s (median of 5); one traced call {n_ops} device operations, "
+            f"{dev_ms:.3f} ms of device time, busy {100 * dev_ms / ms:.1f}%; peak memory "
+            f"{peak:.1f} MiB above the inputs {tag}")
 
     # ---- extract_cycles on one window ----
     for cfg in (flag, dataclasses.replace(flag, method=Method.ESPRIT)):
@@ -585,7 +632,7 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
     # ---- B3 at the ridge cells (d) and (e): 4096 and 16,384 windows x
     # 4096 -> 230 bins ----
     n_bins = 230
-    for name in ("ridge (d)", "ridge (e), framed route"):
+    for name in ("ridge (d), framed route", "ridge (e), framed route"):
         windows = frame_series(series[name], WINDOW, 16).contiguous()
         spec, ref = kb.band_dft(windows, n_bins), band_dft_plain(windows, n_bins)
         torch.cuda.synchronize()
@@ -647,7 +694,101 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
     log(f"ESPRIT's Durand-Kerner roots of {tuple(psi.shape)}: {n_launch} kernel launches a "
         f"call, {host_ms:.3f} ms a call on the host clock (synchronised, mean of 5), "
         f"{dev_ms:.3f} ms between CUDA events (median of 5) {tag}")
-    return {"launches": launches, "records": rec}
+    return {"launches": launches, "records": rec, "routes": route}
+
+
+def check_auto_near_tie(dev, tag) -> None:
+    """AUTO at the flagship configuration (f) on the series of seed
+    SEED + 17, where the card's run and the CPU port's part at one window
+    (ROADMAP C3). Held: every B1-B3 call of the card's run against its
+    plain version (`check_preset_calls`); every window of the first 8
+    but those below within the AUTO limits; and each window that differs
+    explained by a float32 near-tie of MUSIC's pseudospectrum: the
+    first of MUSIC's stages whose discrete output differs between the
+    card and the CPU is the per-band local maxima ("peaks"), each moved
+    pick goes to a neighbouring grid point, and the float64 difference
+    of the two points' values is smaller than the error of a float32 run
+    (the card's or the CPU's) on that difference, so float32 cannot order
+    them. Logged: the moved pick, its pre-rank fate, its amplitude, the
+    eigen ratio against `auto_eigen_threshold`, and the AUTO slot whose
+    record it changes, and the pick of the window run alone on the card.
+    Raises on any other difference."""
+    from wavespec_tpu_torch import ExtractConfig, Method, extract_cycles_batch
+    from wavespec_tpu_torch.analyze.music import music_candidates
+    from wavespec_tpu_torch.extract import AMPLITUDE, EIGEN_RATIO, METHOD_ID, PERIOD, extractor
+    from wavespec_tpu_torch.testing import attrs_mismatches, limits_for
+
+    cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
+                        method=Method.AUTO, ar_order=10)
+    hop, nwin, n_cpu = 64, 512, 8
+    x = torch.from_numpy(planted_series(WINDOW + (nwin - 1) * hop, SEED + 17)).to(dev)
+    card, calls = record_calls(lambda: extract_cycles_batch(x, cfg, hop=hop))
+    torch.cuda.synchronize()
+    count = check_preset_calls(calls, "AUTO (f) seed + 17")
+    card = card[:n_cpu].cpu().numpy()
+    prefix = x[: WINDOW + (n_cpu - 1) * hop].cpu()
+    cpu = extract_cycles_batch(prefix, cfg, hop=hop).numpy()
+    limits = limits_for(Method.AUTO)
+    differ = [w for w in range(n_cpu) if attrs_mismatches(card[w], cpu[w], limits=limits)]
+
+    def stages(series, dtype):
+        """MUSIC's stages over the path's own in-window inputs."""
+        mod = extractor(cfg, series.device, dtype)
+        frames = mod.frames(mod._series(series.to(dtype), hop), hop)
+        hp = mod.main_hp(frames - frames[..., :1])[..., 0, :]
+        return {stop: music_candidates(hp, cfg, upto=stop, tables=mod.tables,
+                                       rows_hp=mod.rows_hp)
+                for stop in ("peaks", "prerank", "refine", None)}
+
+    on_card = stages(x, torch.float32)
+    on_cpu, on_cpu64 = stages(prefix, torch.float32), stages(prefix, torch.float64)
+    for w in differ:
+        row = lambda st, stop, key: st[stop][key][w].detach().double().cpu().numpy()
+        first = next((stop for stop, keys in (("peaks", ("gidx", "valid")),
+                                              ("prerank", ("gidx", "valid")),
+                                              ("refine", ("valid",)), (None, ("a", "b")))
+                      if any(not np.array_equal(row(on_card, stop, k), row(on_cpu, stop, k))
+                             for k in keys)), "none")
+        if first != "peaks":
+            raise AssertionError(f"AUTO (f) seed + 17, window {w}: card and CPU part at MUSIC's "
+                                 f"stage {first!r}, not at a near-tie of the local maxima")
+        g_card, g_cpu = row(on_card, "peaks", "gidx"), row(on_cpu, "peaks", "gidx")
+        ps = {name: row(st, "peaks", "pseudo")
+              for name, st in (("card", on_card), ("cpu", on_cpu), ("cpu64", on_cpu64))}
+        moved = []
+        for j in np.flatnonzero(g_card != g_cpu):
+            a, b = int(g_cpu[j]), int(g_card[j])
+            d64 = ps["cpu64"][a] - ps["cpu64"][b]
+            err = max(abs((ps[k][a] - ps[k][b]) - d64) for k in ("card", "cpu"))
+            if not (abs(a - b) == 1 and abs(d64) < err):
+                raise AssertionError(f"AUTO (f) seed + 17, window {w}: MUSIC's pick {j} moved "
+                                     f"from grid {a} to {b}, float64 difference {d64:.3e}, "
+                                     f"float32 error on it {err:.3e}: not a near-tie")
+            moved.append(f"pick {j} at grid {a} (CPU) against {b} (card), f*n "
+                         f"{row(on_cpu, 'peaks', 'freq')[j] * WINDOW:g} against "
+                         f"{row(on_card, 'peaks', 'freq')[j] * WINDOW:g}; float64 values "
+                         f"{ps['cpu64'][a]:.9g} and {ps['cpu64'][b]:.9g} (difference "
+                         f"{d64:.3e}), float32 error on the difference up to {err:.3e}")
+        alone = stages(x[w * hop: w * hop + WINDOW], torch.float32)["peaks"]["gidx"][0]
+        moved.append(f"the window alone on the card picks grid "
+                     f"{alone.cpu().numpy()[g_card != g_cpu].tolist()}")
+        kept = {name: int(row(st, "prerank", "valid").sum())
+                for name, st in (("card", on_card), ("cpu", on_cpu))}
+        slots = np.flatnonzero((card[w][:, METHOD_ID] != cpu[w][:, METHOD_ID])
+                               | (np.abs(card[w][:, PERIOD] - cpu[w][:, PERIOD]) > 1e-3))
+        log(f"AUTO (f) seed + 17, window {w}: the first of MUSIC's stages where card and CPU "
+            f"part is the local maxima: {'; '.join(moved)}; candidates kept by the pre-rank "
+            f"card {kept['card']}, CPU {kept['cpu']}; window eigen ratio card "
+            f"{card[w][0, EIGEN_RATIO]:.1f}, CPU {cpu[w][0, EIGEN_RATIO]:.1f} (threshold "
+            f"{cfg.auto_eigen_threshold:g}); AUTO slots changed {slots.tolist()}: "
+            + "; ".join(f"slot {s} card method {card[w][s, METHOD_ID]:g} period "
+                        f"{card[w][s, PERIOD]:.3f} amplitude {card[w][s, AMPLITUDE]:.5f}, CPU "
+                        f"method {cpu[w][s, METHOD_ID]:g} period {cpu[w][s, PERIOD]:.3f} "
+                        f"amplitude {cpu[w][s, AMPLITUDE]:.5f}" for s in slots)
+            + f"; largest amplitude of the window {cpu[w][:, AMPLITUDE].max():.5f}")
+    log(f"AUTO (f) seed + 17: kernel calls against their plain versions {count}; windows of "
+        f"the first {n_cpu} within the AUTO limits card against CPU: "
+        f"{[w for w in range(n_cpu) if w not in differ]}; near-ties explained: {differ} {tag}")
 
 
 def tail_diff(got, ref, what) -> float:
@@ -664,6 +805,131 @@ def tail_diff(got, ref, what) -> float:
             raise AssertionError(f"B5 v757_tail {what}: {k} beyond 1e-6 relative")
         worst = max(worst, d.max().item())
     return worst
+
+
+def hopped_ops(nwin: int, window: int, hop: int, n_bins: int) -> float:
+    """The float32 operations of the overlap-shared band DFT of one
+    series, counted from the function and not from any kernel's tiling:
+    each 128-sample row some window covers whole transformed once (4 a
+    sample and bin); each row's prefix sums up to the largest phase at
+    which a window starts or ends inside it, once (4 a sample and bin);
+    for each row that starts a window, the chain over the R - 1 full rows
+    after it (8 a row and bin); 12 a window and bin to combine them."""
+    r = window // 128
+    start = np.arange(nwin, dtype=np.int64) * hop
+    q0, phi = start // 128, start % 128
+    whole = np.unique(q0[:, None] + np.arange(r)).size
+    prefix = np.zeros(int(q0[-1]) + r + 1, np.int64)
+    np.maximum.at(prefix, q0, phi)
+    np.maximum.at(prefix, q0 + r, phi)
+    per_bin = (4 * 128 * whole + 4 * int(prefix.sum()) + 8 * (r - 1) * np.unique(q0).size
+               + 12 * nwin)
+    return float(per_bin * n_bins)
+
+
+def check_hopped_dft(dev, tag) -> dict:
+    """Kernel H1, the hopped band DFT (`kernels.hopped_dft`), on the card:
+    against its plain version within 1e-6 of each call's largest |bin| and
+    against the float64 rfft of every window within 2e-6 (the JAX
+    package's gate, `tests/test_hopped_dft.py`), at the JAX test's shapes
+    (window, hop) = (1024, 16), (512, 8), (1024, 48), (1024, 64),
+    (8192, 64), (16384, 128), at hops of 128 and more, at MUSIC's seeds
+    (a) (hop 64, 512 windows, 456 bins) and at the ridge cells (d) and
+    (e) (hop 16, 4096 and 16,384 windows, 230 bins); bitwise append-
+    invariant (the bins of series[:L] equal the first windows' of
+    series[:L + D]); a [S, L] batch bitwise equal to each series alone;
+    a series slice at an odd float offset bitwise equal to its aligned
+    copy. Then timed at (a), (d) and (e), each as a CUDA graph of 10
+    calls (the device's time, not the host's preparation of a call),
+    beside its wrapper's time (CUDA events around 5 back-to-back calls),
+    its plain version, `torch.stft` of the series (one PyTorch call
+    computing every window's DFT, sliced to the band), `torch.fft.rfft`
+    over the contiguous frames plus slice, the framed route (framing copy
+    and B3) and its bound (`hopped_ops`); the record is the one at (e)."""
+    from wavespec_tpu_torch.extract import frame_series
+    from wavespec_tpu_torch.kernels import band_dft as kb
+    from wavespec_tpu_torch.kernels import hopped_dft as kh
+
+    def series(length, seed):
+        return torch.from_numpy(planted_series(length, seed)).to(dev)
+
+    cases = {"(1024, 16)": (1024, 16, 64, 105), "(512, 8)": (512, 8, 98, 100),
+             "(1024, 48)": (1024, 48, 21, 80), "(1024, 64)": (1024, 64, 32, 105),
+             "(8192, 64)": (8192, 64, 9, 300), "(16384, 128)": (16384, 128, 5, 220),
+             "(1024, 128)": (1024, 128, 20, 100), "(1024, 200)": (1024, 200, 20, 100),
+             "(a)": (WINDOW, 64, 512, 456), "(d)": (WINDOW, 16, 4096, 230),
+             "(e)": (WINDOW, 16, 16384, 230)}
+    max_err = 0.0
+    errs = {}
+    for i, (label, (window, hop, nwin, k)) in enumerate(cases.items()):
+        x = series(window + (nwin - 1) * hop, SEED + 50 + i)
+        got = kh.rfft_band_hopped(x, window, hop, k)
+        plain = kh.rfft_band_hopped_plain(x, window, hop, k)
+        torch.cuda.synchronize()
+        want = torch.fft.rfft(frame_series(x.double(), window, hop), dim=-1)[..., :k]
+        scale = plain.abs().max().item()
+        e_plain = (got - plain).abs().max().item() / scale
+        e64 = (got.to(torch.complex128) - want).abs().max().item() / want.abs().max().item()
+        if not (tuple(got.shape) == (nwin, k) and e_plain <= 1e-6 and e64 <= 2e-6
+                and torch.isfinite(torch.view_as_real(got)).all()):
+            raise AssertionError(f"H1 hopped_dft at {label}: {tuple(got.shape)}, against plain "
+                                 f"{e_plain:.3e} (tol 1e-6), against float64 {e64:.3e} (tol 2e-6)")
+        max_err = max(max_err, (got - plain).abs().max().item())
+        errs[label] = (e_plain, e64)
+    log("H1 hopped_dft (window, hop) against its plain version / the float64 rfft of every "
+        "window, of the largest |bin| (tol 1e-6 / 2e-6): "
+        + ", ".join(f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in errs.items()))
+
+    x = series(WINDOW + 300 * 16, SEED + 70)
+    short = kh.rfft_band_hopped(x[: WINDOW + 100 * 16], WINDOW, 16, 230)
+    full = kh.rfft_band_hopped(x, WINDOW, 16, 230)
+    xs = torch.stack([series(WINDOW + 50 * 16, SEED + 71 + s) for s in range(4)])
+    batch = kh.rfft_band_hopped(xs, WINDOW, 16, 230)
+    wide = series(WINDOW + 50 * 16 + 8, SEED + 75)
+    odd = wide[3: 3 + WINDOW + 50 * 16]
+    checks = {
+        "no repaint (series[:L] against series[:L + 3200])":
+            torch.equal(short, full[: short.shape[0]]),
+        "a [4, L] batch against each series alone":
+            all(torch.equal(batch[s], kh.rfft_band_hopped(xs[s], WINDOW, 16, 230))
+                for s in range(4)),
+        f"a slice at float offset 3 (address % 16 = {odd.data_ptr() % 16}) against its copy":
+            torch.equal(kh.rfft_band_hopped(odd, WINDOW, 16, 230),
+                        kh.rfft_band_hopped(odd.clone(), WINDOW, 16, 230)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"H1 hopped_dft: {checks}")
+    log("H1 hopped_dft bitwise: " + "; ".join(checks))
+
+    rec = {}
+    for label in ("(a)", "(d)", "(e)"):
+        window, hop, nwin, k = cases[label]
+        x = series(window + (nwin - 1) * hop, SEED + 80)
+        ones = torch.ones(window, device=dev)
+        out = kh.rfft_band_hopped(x, window, hop, k)
+        frames = frame_series(x, window, hop).contiguous()
+        r = dict(
+            ms=graph_ms(lambda: kh.rfft_band_hopped(x, window, hop, k)),
+            wrapper_ms=cuda_ms(lambda: kh.rfft_band_hopped(x, window, hop, k), per_run=5),
+            plain_ms=cuda_ms(lambda: kh.rfft_band_hopped_plain(x, window, hop, k)),
+            library_ms=graph_ms(lambda: torch.stft(x, window, hop, window=ones, center=False,
+                                                   return_complex=True)[:k]),
+            rfft_ms=graph_ms(lambda: torch.fft.rfft(frames)[..., :k]),
+            framed_ms=graph_ms(lambda: kb.band_dft(frame_series(x, window, hop).contiguous(), k)),
+            bound=bound(nbytes(x, torch.view_as_real(out)), hopped_ops(nwin, window, hop, k)),
+            max_abs_err=max_err)
+        del frames
+        rec[label] = r
+        log(f"H1 hopped_dft at {label} ({nwin} windows of {window}, hop {hop}, {k} bins): "
+            f"kernel {r['ms']:.4f} ms (through the wrapper {r['wrapper_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, torch.stft + slice {r['library_ms']:.4f} ms, "
+            f"torch.fft.rfft over the contiguous frames + slice {r['rfft_ms']:.4f} ms, the "
+            f"framed route (framing copy + B3) {r['framed_ms']:.4f} ms, bound "
+            f"{r['bound'][0]:.5f} ms ({r['bound'][1]}; "
+            f"{hopped_ops(nwin, window, hop, k) / 1e9:.3f} GFLOP); CUDA graphs of 10 calls "
+            f"but the wrapper's and the plain version's time (5 and 1 calls a run), median of "
+            f"5 runs {tag}")
+    return rec["(e)"]
 
 
 def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
@@ -879,11 +1145,12 @@ def feed(drv, bars: np.ndarray, chunks, timed_from: int, profiled=range(0), chec
 
 
 class KernelCalls:
-    """Within `with`, wraps every site where a path looks up B1-B5 and,
-    while `on`, records each call's (name, args, kwargs, result): the
+    """Within `with`, wraps every site where a path looks up B1-B5 and H1
+    and, while `on`, records each call's (name, args, kwargs, result): the
     kernel modules' own wrappers (looked up at call time by
-    `analyze.jacobi.jacobi_eigh`, `analyze.music.music_extract`,
-    `ops.spectrum.framed_spectrum` and B3's own split of long windows) and
+    `analyze.jacobi.jacobi_eigh`, `analyze.music.music_candidates`,
+    `ops.spectrum.framed_spectrum`, B3's own split of long windows and, for
+    H1, `extract`'s ridge and MUSIC routes) and
     those `pipeline.v757` imported (`band_dft`, `track_frames`, which takes
     B4 on the card for the vectorized matcher, and `v757_tail`). Nothing is
     copied: no path writes a tensor after handing it to a kernel or
@@ -893,13 +1160,14 @@ class KernelCalls:
 
     def __init__(self):
         from wavespec_tpu_torch.kernels import band_dft as kb
+        from wavespec_tpu_torch.kernels import hopped_dft as kh
         from wavespec_tpu_torch.kernels import jacobi as kj
         from wavespec_tpu_torch.kernels import music_select as ks
         from wavespec_tpu_torch.pipeline import v757 as pv
 
         self.sites = ((kj, "jacobi_eigh_unsorted"), (ks, "select_candidates"),
                       (kb, "band_dft"), (pv, "band_dft"), (pv, "track_frames"),
-                      (pv, "v757_tail"))
+                      (pv, "v757_tail"), (kh, "rfft_band_hopped"))
         self.on, self.calls = False, []
 
     def __enter__(self):
@@ -1409,24 +1677,35 @@ PRESET_TEXT_W1024 = ("time: dc(mode=0); extract: window=1024, top_k=6, method=mu
 
 
 def check_preset_calls(calls: KernelCalls, label: str) -> dict:
-    """Every recorded B1-B5 call of one run (a preset's, or a host-surface
-    path's; `label` prefixes the log line) against its plain version
-    on the same inputs: B1, B2, B4 and B5 bitwise (every output and the
-    final states), B3 per window within 1e-4 of its largest bin (a call on
-    windows past `MAX_N`, which recombines the kernel's sub-window calls,
-    against a float64 DFT of the same windows, every bin it returns; its
-    sub-window calls against the plain version as any other).
+    """Every recorded B1-B5 and H1 call of one run (a preset's, or a
+    host-surface path's; `label` prefixes the log line) against its plain
+    version on the same inputs: B1, B2, B4 and B5 bitwise (every output
+    and the final states), B3 per window within 1e-4 of its largest bin
+    (a call on windows past `MAX_N`, which recombines the kernel's
+    sub-window calls, against a float64 DFT of the same windows, every bin
+    it returns; its sub-window calls against the plain version as any
+    other), H1 within 1e-6 of the call's largest bin.
     Returns the calls counted by kernel."""
     from wavespec_tpu_torch.analyze.jacobi import jacobi_eigh_plain
     from wavespec_tpu_torch.analyze.music import select_candidates_plain
     from wavespec_tpu_torch.analyze.trackers import TrackerState, track_frames_plain
     from wavespec_tpu_torch.kernels.band_dft import MAX_N
+    from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped_plain
     from wavespec_tpu_torch.ops import spectrum as ps
     from wavespec_tpu_torch.pipeline.tail import v757_tail_plain
 
-    count, b3_err, long_b3 = {}, 0.0, {}
+    count, b3_err, h1_err, long_b3 = {}, 0.0, 0.0, {}
     for name, args, kw, out in calls.calls:
         count[name] = count.get(name, 0) + 1
+        if name == "rfft_band_hopped":
+            ref = rfft_band_hopped_plain(*args, **kw)
+            err = (out - ref).abs().max().item() / ref.abs().max().item()
+            if not (out.shape == ref.shape and err <= 1e-6
+                    and torch.isfinite(torch.view_as_real(out)).all()):
+                raise AssertionError(f"{label}: H1 on a series {tuple(args[0].shape)} off its "
+                                     f"plain version ({err:.3e}, tol 1e-6)")
+            h1_err = max(h1_err, err)
+            continue
         if name == "band_dft":
             windows = args[0]
             if windows.shape[-1] > MAX_N:   # the split's recombination, every bin of it
@@ -1467,7 +1746,10 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
             raise AssertionError(f"{label}: {name} on {tuple(args[0].shape)} differs "
                                  f"from its plain version in {bad}")
     ps._dft_basis.cache_clear()          # the plain DFT's bases (up to 1 GB at 16384)
-    held = [f"{name} bitwise" for name in count if name != "band_dft"]
+    held = [f"{name} bitwise" for name in count if name not in ("band_dft", "rfft_band_hopped")]
+    if "rfft_band_hopped" in count:
+        held.append(f"rfft_band_hopped within {h1_err:.3e} of each call's largest bin "
+                    f"(tol 1e-6)")
     if "band_dft" in count:
         held.append(f"band_dft within {b3_err:.3e} of each window's largest bin (tol 1e-4)")
     for (shape, n_bins), err in long_b3.items():
@@ -1847,7 +2129,62 @@ def fetcher_job(dev, tag, path_launches) -> dict:
         f"fields 0-3 of the {int(res.sum())} resolved slots within {core[res].max():.3e} (JAX's "
         f"gate 1e-3; every slot {core.max():.3e}); within testing's MUSIC limits (share used: "
         f"{top})")
+    ridge_chunks(dev, path_launches)
     return rec
+
+
+def ridge_chunks(dev, path_launches) -> None:
+    """(k) the chunked driver on the hopped route: FFT ridge at `bench.py`'s
+    cell (window 4096, top_k 8, band [18, 200], hop 16) over 12,288
+    windows, in chunks of 4096 windows (each chunk starts on a 128-sample
+    boundary: the attrs bitwise equal to one call's) and of 4001 (off that
+    grid, each chunk has its own row grid: the first chunk's attrs bitwise,
+    every chunk's bins within 1e-6 of the one call's largest bin, the
+    planted bins found on the newest window), every H1 call held against
+    its plain version."""
+    from wavespec_tpu_torch import ExtractConfig, Method, extract_cycles_batch
+    from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
+    from wavespec_tpu_torch.ops.spectrum import band_indices
+    from wavespec_tpu_torch.pipeline import extract_cycles_batch_chunked
+
+    cfg = ExtractConfig(window=WINDOW, top_k=8, min_period=18.0, max_period=200.0,
+                        method=Method.FFT_RIDGE)
+    nwin, n_bins = 12_288, band_indices(WINDOW, 18.0, 200.0)[1] + 3   # 230 at 4096
+    x = torch.from_numpy(planted_series(WINDOW + 16 * (nwin - 1), SEED + 32)).to(dev)
+    whole = extract_cycles_batch(x, cfg, hop=16)
+    whole_spec = rfft_band_hopped(x, WINDOW, 16, n_bins)
+    scale = whole_spec.abs().max().item()
+    held = []
+    for chunk in (4096, 4001):
+        got, calls = recorded(
+            path_launches, f"(k) ridge chunks of {chunk}",
+            lambda: extract_cycles_batch_chunked(x, cfg, hop=16, chunk_windows=chunk),
+            ("hopped_dft",))
+        n_calls = check_preset_calls(calls, f"host (k) ridge chunks of {chunk}").get(
+            "rfft_band_hopped", 0)
+        spec_err = 0.0
+        for i, (_, _, _, spec) in enumerate(c for c in calls.calls if c[0] == "rfft_band_hopped"):
+            w0 = i * chunk
+            n = min(chunk, nwin - w0)
+            spec_err = max(spec_err, (spec[:n] - whole_spec[w0:w0 + n]).abs().max().item() / scale)
+        del calls
+        aligned = chunk * 16 % 128 == 0
+        same = torch.equal(got, whole) if aligned else torch.equal(got[:chunk], whole[:chunk])
+        newest = got[-1, :, 2].cpu().numpy()
+        found = all(np.any(np.abs(newest - WINDOW / round(WINDOW / p)) <= 1e-3)
+                    for p in (50.0, 120.0))
+        if not (same and found and n_calls == -(-nwin // chunk) and spec_err <= 1e-6
+                and (spec_err == 0.0 or not aligned)):
+            raise AssertionError(f"(k) ridge chunks of {chunk}: attrs bitwise {same}, H1 calls "
+                                 f"{n_calls}, bins off the one call by {spec_err:.3e}, planted "
+                                 f"bins found {found}")
+        differ = int((got != whole).any(-1).any(-1).sum())
+        held.append(f"chunks of {chunk} ({n_calls} H1 calls): " + (
+            "bins and attrs bitwise equal to one call" if aligned else
+            f"bins within {spec_err:.3e} of the one call's largest (tol 1e-6), attrs of "
+            f"{differ} of {nwin} windows not bitwise equal, the first chunk's bitwise"))
+    log(f"(k) extract_cycles_batch_chunked, FFT ridge at hop 16 over {nwin} windows on the "
+        f"hopped route: " + "; ".join(held))
 
 
 def timed_update(drv, bars) -> tuple[float, float]:
@@ -1996,8 +2333,8 @@ def bridge_on_card(dev, tag, path_launches) -> dict:
     spent in `submit` against the time waiting in `try_get`; one template
     job (`build_wave_preset_template`'s text, MUSIC at window 4096, segments
     of 1024) bitwise equal to `run_pipeline`; `mt_gpu_wave_build_tick_series`
-    on 100,000 ticks against the same builder on the CPU. Every B1-B3 call
-    of the path held against its plain version."""
+    on 100,000 ticks against the same builder on the CPU. Every B1-B3 and
+    H1 call of the path held against its plain version."""
     from wavespec_tpu_torch import ExtractConfig, Method, extract_cycles, extract_cycles_batch
     from wavespec_tpu_torch import bridge
     from wavespec_tpu_torch.feeds import build_tick_series
@@ -2054,8 +2391,10 @@ def bridge_on_card(dev, tag, path_launches) -> dict:
         return errs, flat, batch0, job
 
     (errs, flat, batch0, job), calls = recorded(
-        path_launches, "(m) bridge", path, ("jacobi_eigh", "music_select", "band_dft"))
-    check_preset_calls(calls, "host (m) bridge")
+        path_launches, "(m) bridge", path,
+        ("jacobi_eigh", "music_select", "band_dft", "hopped_dft"))
+    if not check_preset_calls(calls, "host (m) bridge").get("rfft_band_hopped"):
+        raise AssertionError("(m) bridge: the batch job's H1 call was not recorded")
     del calls
     xt = torch.from_numpy(xw).to(dev)
     for m, got in flat.items():
@@ -2259,6 +2598,7 @@ def main() -> None:
         select_candidates_plain)
     from wavespec_tpu_torch.extract import extractor, frame_highpassed, frame_series
     from wavespec_tpu_torch.kernels import band_dft as kb
+    from wavespec_tpu_torch.kernels import hopped_dft as kh
     from wavespec_tpu_torch.kernels import jacobi as kj
     from wavespec_tpu_torch.kernels import music_select as ks
     from wavespec_tpu_torch.kernels import tracker as kt
@@ -2272,7 +2612,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     counters = {"jacobi_eigh": kj.jacobi_eigh_unsorted, "music_select": ks.select_candidates,
                 "band_dft": kb.band_dft, "tracker": kt.track_frames_kernel,
-                "v757_tail": ktail.v757_tail}
+                "v757_tail": ktail.v757_tail, "hopped_dft": kh.rfft_band_hopped}
 
     def reset_counts():
         for fn in counters.values():
@@ -2303,7 +2643,7 @@ def main() -> None:
 
     t_build = time.perf_counter()
     libs = {"jacobi_eigh": kj._lib, "music_select": ks._lib, "band_dft": kb._lib,
-            "tracker": kt._lib, "v757_tail": ktail._lib}
+            "tracker": kt._lib, "v757_tail": ktail._lib, "hopped_dft": kh._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         build_s = dict(zip(libs, pool.map(build, libs.values())))
     log(f"kernels built in parallel and loaded from wavespec_tpu_torch/csrc/ in "
@@ -2520,6 +2860,7 @@ def main() -> None:
                     "music_select": dict(b2_times["a"], library_ms=None,
                                          max_abs_err=max_abs["music_select"])}
     kernel_times.update(check_v757_kernels(xc, vcfg, dev, tag))
+    kernel_times["hopped_dft"] = check_hopped_dft(dev, tag)
     # ---- 3. golden fixture ----
     data = np.load(ROOT / "tests" / "fixtures" / "golden_extract.npz")
     gcfg = ExtractConfig(window=1024, top_k=2, min_period=10.0, max_period=200.0,
@@ -2535,8 +2876,8 @@ def main() -> None:
         + readings(gattrs.cpu().numpy(), data["attrs_mus"]))
 
     # ---- 4. the main paths ----
-    def step(x, hop):
-        attrs = extract_cycles_batch(x, cfg, hop=hop)
+    def step(x, hop, step_cfg=cfg):
+        attrs = extract_cycles_batch(x, step_cfg, hop=hop)
         dec = decode_causal(attrs, rcfg)
         return attrs, dec
 
@@ -2549,19 +2890,24 @@ def main() -> None:
     reset_counts()
     outputs = {}
     for name, (x, hop, nwin) in shapes.items():
-        before = [counters[k].launches for k in music_kernels]
+        # the seeds: the hopped DFT at hop 64 (P = 2), cuFFT over the frames at hop 1
+        before = [counters[k].launches for k in (*music_kernels, "hopped_dft")]
         outputs[name] = step(x, hop)
-        after = [counters[k].launches for k in music_kernels]
-        if not all(b > a for a, b in zip(before, after)):
+        after = [counters[k].launches for k in (*music_kernels, "hopped_dft")]
+        if not all(b > a for a, b in zip(before[:2], after[:2])):
             raise AssertionError(f"shape ({name}): a kernel was not launched {after}")
+        if (after[2] > before[2]) != kh.hopped_eligible(WINDOW, hop):
+            raise AssertionError(f"shape ({name}): hopped_dft launched {after[2] - before[2]} "
+                                 f"times at hop {hop}")
     torch.cuda.synchronize()
-    launches = {k: counters[k].launches for k in music_kernels}
+    launches = {k: counters[k].launches for k in (*music_kernels, "hopped_dft")}
     reset_counts()
     out_c = run_v757_batch(xc, vcfg)
     torch.cuda.synchronize()
     launches.update({k: counters[k].launches for k in v757_kernels})
     log(f"main path launches: MUSIC step at (a) and (b) "
-        f"{ {k: launches[k] for k in music_kernels} }, run_v757_batch at (c) "
+        f"{ {k: launches[k] for k in (*music_kernels, 'hopped_dft')} } (hopped_dft at (a) "
+        f"only), run_v757_batch at (c) "
         f"{ {k: launches[k] for k in v757_kernels} }")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"a kernel of a main path was not launched: {launches}")
@@ -2651,12 +2997,22 @@ def main() -> None:
         ms = cuda_ms(lambda: step(x, hop), warmup=1)
         log(f"shape ({name}) hop {hop}, {nwin} windows: {ms:.3f} ms per step, "
             f"{nwin / (ms / 1e3):.1f} windows/s (median of 5) {tag}")
+    # step (a) on both seed routes, in turns: hopped, framed, framed, hopped
+    framed_cfg = dataclasses.replace(cfg, use_hopped_dft=False)
+    seeds_ms = {"hopped": [], "framed": []}
+    for route in ("hopped", "framed", "framed", "hopped"):
+        seeds_ms[route].append(cuda_ms(lambda: step(xa, hop_a, cfg if route == "hopped"
+                                                     else framed_cfg), warmup=1))
+    log(f"shape (a) step on both seed routes, in turns: hopped DFT "
+        f"{', '.join(f'{m:.3f}' for m in seeds_ms['hopped'])} ms, cuFFT over the frames "
+        f"{', '.join(f'{m:.3f}' for m in seeds_ms['framed'])} ms (median of 5 each) {tag}")
     ms = cuda_ms(lambda: run_v757_batch(xc, vcfg), warmup=1)
     log(f"shape (c) run_v757_batch {b_c} symbols x {t_c} frames, window {WINDOW}: "
         f"{ms:.3f} ms per call, {b_c * t_c / (ms / 1e3):.1f} sym*bars/s (median of 5) {tag}")
 
     # ---- 5. the extraction methods, each a main path of its own ----
     methods = extraction_methods(dev, tag, counters, reset_counts)
+    check_auto_near_tie(dev, tag)
     # ---- 6. the live v7.57 path, each a main path of its own ----
     live = live_v757(dev, tag, counters, reset_counts)
     # ---- 7. the model presets, each a main path of its own ----
@@ -2675,6 +3031,7 @@ def main() -> None:
         "band_dft": "wavespec_tpu/kernels/fused_dft.py:122",
         "tracker": "wavespec_tpu/kernels/tracker_pallas.py:449",
         "v757_tail": "wavespec_tpu/kernels/v757_tail_pallas.py:609",
+        "hopped_dft": "wavespec_tpu/kernels/hopped_dft.py:126",
     }
     records = []
     for name, replaces in sources.items():

@@ -181,17 +181,24 @@ def test_no_repaint_on_the_framed_ridge_route(case):
                                   "music-linear-hann", "auto"])
 def test_extract_cycles_is_the_batch_last_window(case):
     """`extract_cycles` on a series equals the rolling batch's last window
-    wherever both run the same per-window path: the ridge to 1e-5, the
-    subspace methods within their float32 limits (the batched products
-    round otherwise than one window's, and MUSIC's pseudospectrum
-    amplifies that, as between two packages)."""
+    wherever both run the same per-window path: the ridge to 1e-5 against
+    the batch's framed route (`use_hopped_dft=False`; the single window is
+    always framed) and within the ridge's float32 limits against its
+    hopped route, the subspace methods within their float32 limits (the
+    batched products round otherwise than one window's, and MUSIC's
+    pseudospectrum amplifies that, as between two packages)."""
     _, pcfg = configs(case)
     x = planted_series(W + 5 * HOP, 7)
     batch = port.extract_cycles_batch(torch.from_numpy(x), pcfg, hop=HOP)
     single = port.extract_cycles(torch.from_numpy(x), pcfg)
     assert single.shape == (BASE.top_k, 15)
     if case.startswith("ridge"):
-        torch.testing.assert_close(single, batch[-1], rtol=1e-5, atol=1e-5)
+        framed = port.extract_cycles_batch(
+            torch.from_numpy(x), dataclasses.replace(pcfg, use_hopped_dft=False), hop=HOP)
+        torch.testing.assert_close(single, framed[-1], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(single[:, 14], batch[-1, :, 14], rtol=0, atol=0)
+        assert attrs_mismatches(single.numpy(), batch[-1].numpy(),
+                                limits=limits_for(case)) == []
     else:
         torch.testing.assert_close(single[:, 14], batch[-1, :, 14], rtol=0, atol=0)
         assert attrs_mismatches(single.numpy(), batch[-1].numpy(),

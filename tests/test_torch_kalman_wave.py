@@ -12,13 +12,13 @@ import torch
 
 from wavespec_tpu.kernels import mxu_fft as jmx
 from wavespec_tpu_torch.extract import config_from_dict
-from wavespec_tpu_torch.filters import kalman_wave as pkw
 from wavespec_tpu_torch.filters import kalman_weights as pkf
 from wavespec_tpu_torch.testing import one_thread
 
-# the JAX package's filters/__init__ exports functions of these names
+# both packages' filters/__init__ export functions of these names
 jkw = importlib.import_module("wavespec_tpu.filters.kalman_wave")
 jkf = importlib.import_module("wavespec_tpu.filters.kalman_weights")
+pkw = importlib.import_module("wavespec_tpu_torch.filters.kalman_wave")
 RTOL = 1e-4
 
 

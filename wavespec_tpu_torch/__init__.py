@@ -3,10 +3,11 @@ ESPRIT and AUTO (rolling batch and single window), the causal decode and
 the final plotted buffers, the v7.57 multi-symbol analytics and their
 live online driver (`pipeline.online.V757OnlineDriver`), the template-job
 pipeline (`run_pipeline`, text presets, the segmented FFT), the Kalman
-wave regressor and the six model presets (`models`), with hand-written
-CUDA kernels for the Jacobi eigh, the MUSIC candidate selection, the band
-DFT, the trackers and the v7.57 tail. Imports torch and numpy, never
-jax."""
+wave regressor and the six model presets (`models`), the host surface
+(bridge, session, caches, feeds, drivers, CLI), with hand-written CUDA
+kernels for the Jacobi eigh, the MUSIC candidate selection, the band DFT,
+the overlap-shared hopped band DFT, the trackers and the v7.57 tail.
+Imports torch and numpy, never jax."""
 
 from wavespec_tpu_torch.extract import (
     AutoExtractor,

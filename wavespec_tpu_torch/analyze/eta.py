@@ -77,6 +77,36 @@ def _angle_mod_pi(q: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return torch.where(ay == 0.0, 0.0, m)
 
 
+def eta_phase_next_extremum(value_now, value_lagged, period_bars, seconds_per_bar):
+    """I/Q instantaneous-phase ETA (seconds), `value_lagged` ~ 90 degrees
+    behind: the distance from the phase atan2(lagged, now) to the next
+    multiple of pi, as a share of the period, clamped to 1.5 periods; 0
+    where the period is not positive. The phase is taken mod pi by
+    `_angle_mod_pi` (the B5 kernel's form), not by atan2 and a ceiling."""
+    value_now = torch.as_tensor(value_now, dtype=torch.float32)
+    value_lagged = torch.as_tensor(value_lagged, dtype=torch.float32, device=value_now.device)
+    period_bars = torch.as_tensor(period_bars, dtype=torch.float32, device=value_now.device)
+    m_ang = _angle_mod_pi(value_lagged, value_now)
+    dphi = torch.where(m_ang > 0.0, torch.full_like(m_ang, math.pi) - m_ang, 0.0)
+    period_sec = period_bars * seconds_per_bar
+    eta = torch.clamp(sdiv(dphi, 2.0 * math.pi) * period_sec, torch.zeros_like(period_sec),
+                      1.5 * period_sec)
+    return torch.where(period_bars > 0, eta, 0.0)
+
+
+def eta_realfft(group_delay_bars, period_bars, seconds_per_bar):
+    """Group-delay ETA (seconds): |tau_g| clamped to 1.5 periods; 0 where
+    the period is not positive."""
+    group_delay_bars = torch.as_tensor(group_delay_bars, dtype=torch.float32)
+    period_bars = torch.as_tensor(period_bars, dtype=torch.float32,
+                                  device=group_delay_bars.device)
+    max_bars = 1.5 * period_bars
+    tau = torch.clamp(group_delay_bars, -max_bars, max_bars)
+    return torch.where(period_bars > 0,
+                       torch.minimum(tau.abs() * seconds_per_bar, max_bars * seconds_per_bar),
+                       0.0)
+
+
 def _masked_median_int(hist: list[torch.Tensor]) -> torch.Tensor:
     """Median of the > 0 entries of five int32 tensors, reference style
     (sorted ascending, element count // 2; 0 when empty), by the
@@ -198,16 +228,9 @@ def eta_state_machine(cycle_values: torch.Tensor, periods: torch.Tensor,
         q = torch.clamp(torch.clamp(torch.floor(period / 4.0 + 0.5), min=1.0)
                         .to(torch.int32), 1, cap - 1)
         v_lag = torch.gather(ring, -1, torch.remainder(tpos - q, cap).long()[..., None])[..., 0]
-        m_ang = _angle_mod_pi(v_lag, v)
-        dphi = torch.where(m_ang > 0.0, torch.full_like(m_ang, math.pi) - m_ang, 0.0)
-        period_sec = period * spb
-        eta_sec = torch.clamp(sdiv(dphi, 2.0 * math.pi) * period_sec,
-                              torch.zeros_like(period_sec), 1.5 * period_sec)
-        eta_sec = torch.where((period > 0) & (tpos >= q), eta_sec, 0.0)
+        eta_sec = torch.where(tpos >= q, eta_phase_next_extremum(v, v_lag, period, spb), 0.0)
         if cfg.mode == EtaMode.REALFFT:
-            max_bars = 1.5 * period
-            tau = torch.clamp(gd, -max_bars, max_bars)
-            eta_sec = torch.where(period > 0, torch.minimum(tau.abs() * spb, max_bars * spb), 0.0)
+            eta_sec = eta_realfft(gd, period, spb)
         elif cfg.mode == EtaMode.HYBRID:
             eta_sec = _hybrid_eta(is_bullish, bull, bear, est, period, gd,
                                   bars_now.to(torch.float32), spb)

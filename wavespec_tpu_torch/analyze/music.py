@@ -21,6 +21,9 @@ Pipeline per window:
    least-squares sinusoid fit, the high-pass gain compensation, and the
    stride-15 attributes of the top_k candidates by fitted power.
 
+Steps 2-4 up to the fit are `music_candidates`, which stops after any
+stage (`upto`) as the JAX package's does; `music_extract` runs it whole.
+
 The static tables (band plan, frequency grids, core masks, the
 bin -> grid-index table) are numpy, exactly as the JAX package builds
 them; `GridTables` holds them as module buffers.
@@ -39,6 +42,7 @@ __all__ = [
     "GridTables",
     "band_precondition_windows",
     "band_rows_hp_periods",
+    "music_candidates",
     "music_extract",
     "music_hp_period",
     "music_pseudospectrum",
@@ -391,37 +395,35 @@ def _dedupe_mask(freq: torch.Tensor, valid: torch.Tensor, tol: float) -> torch.T
     return valid & ~dup
 
 
-def select_candidates_plain(pseudo: torch.Tensor, band_power: torch.Tensor,
-                            cfg, tables: GridTables) -> dict:
-    """Peaks -> ridge seeds -> dedupe -> pre-rank -> keep (`music.py:912-1019`).
+def _subspace_peaks(pseudo: torch.Tensor, cfg, tables: GridTables) -> dict:
+    """The per-band subspace peaks: freq, valid, gidx, vals ``[..., R*k]``."""
+    vals, gidx = _topk_local_maxima_bands(pseudo, tables, cfg.top_k, excl=1.0 / cfg.window)
+    return {"freq": tables.freqs[gidx], "valid": vals > 0, "gidx": gidx, "vals": vals}
 
-    pseudo ``[..., G]``, band_power ``[..., Kb]`` (FFT bins k_min..k_max).
-    Returns dict(freq, valid, gidx (int32), vals, step0), each
-    ``[..., keep]``, keep = min(2*top_k, C), C = R*top_k + top_k.
-    """
-    n = cfg.window
-    k = cfg.top_k
-    k_min, kb = tables.k_min, tables.k_max - tables.k_min + 1
-    if band_power.shape[-1] != kb:
-        raise ValueError(f"band_power width {band_power.shape[-1]} != band bins {kb}")
 
-    # Per-band subspace peaks.
-    vals, gidx = _topk_local_maxima_bands(pseudo, tables, k, excl=1.0 / n)
-    freq = tables.freqs[gidx]
-    valid = vals > 0
-
-    # Ridge seeds: the top-k FFT band-power bins.
-    rp, ridx = topk_stable(band_power, k)
-    ridge_freq = (ridx + k_min).to(pseudo.dtype) / n
+def _add_ridge_seeds(cand: dict, pseudo: torch.Tensor, band_power: torch.Tensor,
+                     cfg, tables: GridTables) -> dict:
+    """The candidates with the top-k FFT band-power bins appended, and
+    those bins' powers `rp`."""
+    rp, ridx = topk_stable(band_power, cfg.top_k)
+    ridge_freq = (ridx + tables.k_min).to(pseudo.dtype) / cfg.window
     ridge_gidx = tables.b2g.to(torch.int64)[ridx]
-    freq = torch.cat([freq, ridge_freq], dim=-1)
-    gidx = torch.cat([gidx, ridge_gidx], dim=-1)
-    vals = torch.cat([vals, torch.gather(pseudo, -1, ridge_gidx)], dim=-1)
-    valid = torch.cat([valid, rp > 0], dim=-1)
+    return {
+        "freq": torch.cat([cand["freq"], ridge_freq], dim=-1),
+        "valid": torch.cat([cand["valid"], rp > 0], dim=-1),
+        "gidx": torch.cat([cand["gidx"], ridge_gidx], dim=-1),
+        "vals": torch.cat([cand["vals"], torch.gather(pseudo, -1, ridge_gidx)], dim=-1),
+        "rp": rp,
+    }
 
-    # Dedupe, then the band-power parabola pre-rank keeps the top 2k.
+
+def _prerank(cand: dict, band_power: torch.Tensor, cfg, tables: GridTables) -> dict:
+    """Dedupe, then the band-power parabola pre-rank keeps the top 2k."""
+    n, k = cfg.window, cfg.top_k
+    k_min, kb = tables.k_min, tables.k_max - tables.k_min + 1
+    freq, gidx, vals = cand["freq"], cand["gidx"], cand["vals"]
     c_count = freq.shape[-1]
-    valid = _dedupe_mask(freq, valid, 0.5 / n)
+    valid = _dedupe_mask(freq, cand["valid"], 0.5 / n)
     k0 = torch.clamp(torch.round(freq * n).to(torch.int64) - k_min, 0, kb - 1)
     padbp = torch.cat([band_power[..., :1], band_power, band_power[..., -1:]], dim=-1)
     pm = torch.gather(padbp[..., :-2], -1, k0)
@@ -450,6 +452,22 @@ def select_candidates_plain(pseudo: torch.Tensor, band_power: torch.Tensor,
         "vals": take(vals),
         "step0": step0[keep_idx],
     }
+
+
+def select_candidates_plain(pseudo: torch.Tensor, band_power: torch.Tensor,
+                            cfg, tables: GridTables) -> dict:
+    """Peaks -> ridge seeds -> dedupe -> pre-rank -> keep (`music.py:912-1019`).
+
+    pseudo ``[..., G]``, band_power ``[..., Kb]`` (FFT bins k_min..k_max).
+    Returns dict(freq, valid, gidx (int32), vals, step0), each
+    ``[..., keep]``, keep = min(2*top_k, C), C = R*top_k + top_k.
+    """
+    kb = tables.k_max - tables.k_min + 1
+    if band_power.shape[-1] != kb:
+        raise ValueError(f"band_power width {band_power.shape[-1]} != band bins {kb}")
+    cand = _add_ridge_seeds(_subspace_peaks(pseudo, cfg, tables), pseudo, band_power,
+                            cfg, tables)
+    return _prerank(cand, band_power, cfg, tables)
 
 
 def _split_n2(n: int) -> int:
@@ -640,19 +658,6 @@ def _sinusoid_fit(windows: torch.Tensor, freq: torch.Tensor,
     return a, b, torch.clamp(resid, min=0.0)
 
 
-def _refine_and_fit(windows: torch.Tensor, cfg, freq, valid, step0):
-    """Parabolic refine (moment form when n >= 16*n2), re-dedupe, LS fit.
-    Returns (freq, valid, a, b, resid_energy)."""
-    n = cfg.window
-    if n >= 16 * _split_n2(n):
-        freq, _ = _refine_freq_moments(windows, freq, step0)
-    else:
-        freq, _ = _refine_freq(windows, freq, step0)
-    valid = _dedupe_mask(freq, valid, 0.5 / n)
-    a, b, resid = _sinusoid_fit(windows, freq, valid.to(windows.dtype))
-    return freq, valid, a, b, resid
-
-
 def hp_gain_compensate(amp: torch.Tensor, psi: torch.Tensor, freq: torch.Tensor,
                        hp_period: int):
     """Undo the preconditioning high-pass's exactly known complex gain
@@ -670,6 +675,73 @@ def hp_gain_compensate(amp: torch.Tensor, psi: torch.Tensor, freq: torch.Tensor,
     h_re, h_im = 1.0 - t_re, -t_im
     h_mag = torch.sqrt(h_re * h_re + h_im * h_im)
     return amp / torch.clamp(h_mag, min=0.05), psi - torch.atan2(h_im, h_re)
+
+
+def music_candidates(windows: torch.Tensor, cfg, band_windows=None, seed_spec=None,
+                     upto: str | None = None, *, tables: GridTables | None = None,
+                     rows_hp=None) -> dict:
+    """The MUSIC candidate pipeline over preconditioned windows ``[..., n]``:
+    pseudospectrum -> per-band peaks -> ridge seeds -> pre-rank ->
+    parabolic refine -> LS fit, stopping after the stage `upto` names
+    ("pseudo", "peaks", "ridge", "prerank", "refine"; None runs all), with
+    the JAX package's dict keys at each stop: pseudo, freqs, eigvals, core,
+    band_slices; then freq, valid, gidx, vals; rp at "ridge"; step0 from
+    "prerank"; a, b, resid_energy at the end. `music_extract` runs it
+    whole.
+
+    The selection to "prerank" is one call of `kernels.music_select.
+    select_candidates` (kernel B2 on the card, its plain version on the
+    CPU), as the JAX package's device path is one Pallas launch; the
+    "peaks" and "ridge" stops run the plain stages. `band_windows`: the
+    per-band inputs of `band_precondition_windows`, or None for the
+    in-window branch (`rows_hp`, built at `band_rows_hp_periods` when not
+    given). `seed_spec`: complex bins 0..k_max of the windows, or None for
+    their framed spectrum. `tables`: the config's `GridTables`, built when
+    not given.
+    """
+    from wavespec_tpu_torch.kernels.music_select import select_candidates
+    from wavespec_tpu_torch.ops.detrend import HighpassMXU
+    from wavespec_tpu_torch.ops.spectrum import framed_spectrum
+
+    if upto not in (None, "pseudo", "peaks", "ridge", "prerank", "refine"):
+        raise ValueError(f"unknown stop {upto!r}")
+    n = cfg.window
+    if tables is None:
+        tables = GridTables(cfg, windows.dtype).to(windows.device)
+    if band_windows is None and rows_hp is None:
+        rows_hp = HighpassMXU(band_rows_hp_periods(cfg), dtype=windows.dtype).to(windows.device)
+    pseudo, eigvals = music_pseudospectrum(band_windows, cfg, tables, windows, rows_hp)
+    out = {"pseudo": pseudo, "freqs": tables.freqs, "eigvals": eigvals, "core": tables.core,
+           "band_slices": tables.band_slices}
+    if upto == "pseudo":
+        return out
+    if upto == "peaks":
+        out.update(_subspace_peaks(pseudo, cfg, tables))
+        return out
+    k_min, k_max = tables.k_min, tables.k_max
+    if seed_spec is None:
+        seed_spec = framed_spectrum(windows, k_max + 1)
+    band_power = power_spectrum(seed_spec)[..., k_min: k_max + 1]
+    if upto == "ridge":
+        out.update(_add_ridge_seeds(_subspace_peaks(pseudo, cfg, tables), pseudo,
+                                    band_power, cfg, tables))
+        return out
+    out.update(select_candidates(pseudo, band_power.contiguous(), cfg, tables))
+    if upto == "prerank":
+        return out
+    freq, valid, step0 = out["freq"], out["valid"], out["step0"]
+    if n >= 16 * _split_n2(n):
+        freq, _ = _refine_freq_moments(windows, freq, step0)
+    else:
+        freq, _ = _refine_freq(windows, freq, step0)
+    # refinement can merge two grid peaks; re-dedupe for a non-singular fit
+    valid = _dedupe_mask(freq, valid, 0.5 / n)
+    out.update(freq=freq, valid=valid)
+    if upto == "refine":
+        return out
+    a, b, resid_energy = _sinusoid_fit(windows, freq, valid.to(windows.dtype))
+    out.update(a=a, b=b, resid_energy=resid_energy)
+    return out
 
 
 def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec,
@@ -690,8 +762,6 @@ def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec,
     Returns ``[..., top_k, 15]`` stride-15 attrs with method_id = 1.
     """
     from wavespec_tpu_torch.extract import Method, _attrs_from_peaks
-    from wavespec_tpu_torch.kernels.music_select import select_candidates
-    from wavespec_tpu_torch.ops.spectrum import framed_spectrum
 
     n = cfg.window
     k = cfg.top_k
@@ -703,15 +773,12 @@ def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec,
         windows = windows - windows[..., :1]
         windows = main_hp(windows)[..., 0, :]
 
-    pseudo, eigvals = music_pseudospectrum(band_windows, cfg, tables, windows, rows_hp)
+    st = music_candidates(windows, cfg, band_windows, seed_spec, tables=tables,
+                          rows_hp=rows_hp)
+    pseudo, eigvals = st["pseudo"], st["eigvals"]
+    gidx, vals = st["gidx"].to(torch.int64), st["vals"]
+    freq, valid, a, b, resid_energy = st["freq"], st["valid"], st["a"], st["b"], st["resid_energy"]
     k_min, k_max = tables.k_min, tables.k_max
-    if seed_spec is None:
-        seed_spec = framed_spectrum(windows, k_max + 1)
-    band_power = power_spectrum(seed_spec)[..., k_min: k_max + 1]
-    sel = select_candidates(pseudo, band_power.contiguous(), cfg, tables)
-    gidx, vals = sel["gidx"].to(torch.int64), sel["vals"]
-    freq, valid, a, b, resid_energy = _refine_and_fit(
-        windows, cfg, sel["freq"], sel["valid"], sel["step0"])
 
     amp = torch.sqrt(a * a + b * b)
     psi = torch.atan2(a, b)  # x = a cos + b sin = amp * sin(w t + psi)

@@ -15,13 +15,19 @@ per method holding its tables as buffers (`RidgeExtractor`,
 `EspritExtractor`, `MusicExtractor`, `AutoExtractor`, built once per
 (cfg, device, dtype) by `extractor`):
 
-- FFT ridge: the band spectrum of each framed window (kernel B3 on the
-  card; the JAX package's hopped DFT is not ported, ROADMAP A3, so every
-  ridge config takes the framed route), then `_ridge_attrs_from_spec`;
+- FFT ridge: the band spectrum of every window, then
+  `_ridge_attrs_from_spec`. As in the JAX package, a config with
+  `use_hopped_dft`, no detrend or taper and an eligible (window, hop)
+  (`kernels.hopped_dft.hopped_eligible`) takes the hopped route
+  (`rfft_band_hopped` over the series, no frame matrix; its kernel on the
+  card); every other one the framed route (kernel B3 over the framed
+  windows on the card);
 - ESPRIT, with the series-level high-pass fast path when no per-window
   detrend or taper runs;
-- MUSIC, with the flagship's series-level fast path, and otherwise the
-  in-window branch (per-window high-pass, per-band decimation and
+- MUSIC, with the flagship's series-level fast path (its seed spectra
+  from `rfft_band_hopped` over the high-passed series where
+  `use_hopped_dft` and the hop allow, as in the JAX package, else from
+  the framed windows), and otherwise the in-window branch (per-window high-pass, per-band decimation and
   high-pass inside the window, seeds from the framed spectrum);
 - AUTO: MUSIC and ridge on the same windows, the MUSIC record where its
   eigen ratio reaches `auto_eigen_threshold`, the ridge record otherwise;
@@ -88,12 +94,13 @@ class ExtractConfig:
     checks as `wavespec_tpu.extract.ExtractConfig`, so a configuration
     carries over by `config_from_dict(dataclasses.asdict(cfg))`.
 
-    `use_pallas_dft`, `use_hopped_dft` and `music_xla_select` select TPU
-    code paths of the JAX package; they are kept for the carry-over and
-    read by nothing here. In particular every FFT-ridge config takes the
-    framed route (the band DFT of each window, kernel B3 on the card),
-    also where the JAX package takes its hopped DFT (`use_hopped_dft`,
-    ROADMAP A3); the two agree to ~2e-7.
+    `use_hopped_dft` routes as in the JAX package: the FFT ridge's
+    spectrum and the MUSIC fast path's seed spectra come from the hopped
+    DFT (`kernels.hopped_dft`) where it is set and the (window, hop) is
+    eligible, and from the framed windows otherwise; the two routes agree
+    to ~2e-7 of the largest bin. `use_pallas_dft` and `music_xla_select`
+    select TPU code paths of the JAX package; they are kept for the
+    carry-over and read by nothing here.
     """
 
     window: int = 4096
@@ -421,11 +428,34 @@ def _series_fast_path(cfg: ExtractConfig) -> bool:
             and cfg.taper == WindowType.NONE)
 
 
+def _hopped_route(cfg: ExtractConfig, hop: int) -> bool:
+    """The series-level spectrum comes from the hopped DFT: the config
+    asks for it and the (window, hop) is eligible (`extract.py:563-580`
+    and `:642-654` of the JAX package)."""
+    from wavespec_tpu_torch.kernels.hopped_dft import hopped_eligible
+
+    return cfg.use_hopped_dft and hopped_eligible(cfg.window, hop)
+
+
 class RidgeExtractor(_Extractor):
-    """The FFT-ridge path of one `ExtractConfig` (framed route)."""
+    """The FFT-ridge path of one `ExtractConfig`: the hopped route over
+    the series where `_hopped_route` holds and no detrend or taper runs,
+    the framed route otherwise."""
 
     def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
         return _fft_ridge(windows, self.cfg)
+
+    def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
+        from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
+        from wavespec_tpu_torch.ops.spectrum import band_indices
+
+        cfg = self.cfg
+        if not (_hopped_route(cfg, hop) and cfg.detrend == DetrendMode.NONE
+                and cfg.taper == WindowType.NONE):
+            return super().forward(series, hop)
+        series = self._series(series, hop).contiguous()
+        _, k_max = band_indices(cfg.window, cfg.min_period, cfg.max_period)
+        return _ridge_attrs_from_spec(rfft_band_hopped(series, cfg.window, hop, k_max + 3), cfg)
 
 
 class EspritExtractor(_Extractor):
@@ -493,6 +523,7 @@ class MusicExtractor(_Extractor):
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
         from wavespec_tpu_torch.analyze.music import (
             band_precondition_windows, music_extract)
+        from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
         from wavespec_tpu_torch.ops.spectrum import rfft_bins
 
         cfg = self.cfg
@@ -505,7 +536,11 @@ class MusicExtractor(_Extractor):
         hp_series = self.main_hp(series)[..., 0, :]
         windows = frame_series(hp_series, cfg.window, hop).contiguous()
         band_w = band_precondition_windows(hp_series, cfg, hop, self.band_hp)
-        seed_spec = rfft_bins(windows)[..., :self.tables.k_max + 1]
+        if _hopped_route(cfg, hop):
+            seed_spec = rfft_band_hopped(hp_series.contiguous(), cfg.window, hop,
+                                         self.tables.k_max + 1)
+        else:
+            seed_spec = rfft_bins(windows)[..., :self.tables.k_max + 1]
         return music_extract(windows, cfg, band_w, seed_spec, self.tables)
 
 

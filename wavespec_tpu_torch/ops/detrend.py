@@ -140,6 +140,15 @@ def ehlers_highpass_detrend(price: torch.Tensor, trend_period: int = 1024) -> to
     return ehlers_highpass_detrend_mxu(price, (trend_period,))[..., 0, :]
 
 
+def ehlers_highpass_detrend_stacked(price: torch.Tensor,
+                                    periods: tuple[int, ...]) -> torch.Tensor:
+    """`ehlers_highpass_detrend` of one input at several cutoff periods,
+    ``[..., L] -> [..., R, L]``, row r at ``periods[r]``: one call of the
+    blocked products (`ehlers_highpass_detrend_mxu`), the same values as
+    the single-period function row by row."""
+    return ehlers_highpass_detrend_mxu(price, tuple(periods))
+
+
 def ehlers_highpass_detrend_rows_mxu(rows: torch.Tensor, periods: tuple[int, ...],
                                      block: int = BLOCK) -> torch.Tensor:
     """Row r of ``[..., R, L]`` filtered at ``periods[r]``, in float64 for a

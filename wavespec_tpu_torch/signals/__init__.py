@@ -1,1 +1,6 @@
-"""Trading signals of the v7.57 tail: FollowFirst."""
+"""Trading signals: the FollowFirst alternation engine (counterpart of
+`wavespec_tpu/signals`, the same exports)."""
+
+from wavespec_tpu_torch.signals.followfirst import FollowFirstConfig, followfirst_signals
+
+__all__ = ["FollowFirstConfig", "followfirst_signals"]

@@ -43,6 +43,12 @@ import contextlib
 
 import numpy as np
 
+from wavespec_tpu_torch.testing.synthetic import (
+    planted_cycles,
+    random_walk_price,
+    verify_extraction,
+)
+
 RESOLVED_FRACTION = 0.05
 
 _NAMES = ("amplitude", "freq", "period", "phase", "eta_bars", "eta_seconds",
