@@ -834,8 +834,11 @@ def check_hopped_dft(dev, tag) -> dict:
     package's gate, `tests/test_hopped_dft.py`), at the JAX test's shapes
     (window, hop) = (1024, 16), (512, 8), (1024, 48), (1024, 64),
     (8192, 64), (16384, 128), at hops of 128 and more, at MUSIC's seeds
-    (a) (hop 64, 512 windows, 456 bins) and at the ridge cells (d) and
-    (e) (hop 16, 4096 and 16,384 windows, 230 bins); bitwise append-
+    (a) (hop 64, 512 windows, 456 bins) and at window 262144 (hop 64, 8
+    windows, the 29,128 bins of k_max + 1 at min_period 9, where the
+    kernel streams G's R = 2048 rows through shared memory 32 at a
+    time), and at the ridge cells (d) and (e) (hop 16, 4096 and 16,384
+    windows, 230 bins); bitwise append-
     invariant (the bins of series[:L] equal the first windows' of
     series[:L + D]); a [S, L] batch bitwise equal to each series alone;
     a series slice at an odd float offset bitwise equal to its aligned
@@ -858,7 +861,8 @@ def check_hopped_dft(dev, tag) -> dict:
              "(8192, 64)": (8192, 64, 9, 300), "(16384, 128)": (16384, 128, 5, 220),
              "(1024, 128)": (1024, 128, 20, 100), "(1024, 200)": (1024, 200, 20, 100),
              "(a)": (WINDOW, 64, 512, 456), "(d)": (WINDOW, 16, 4096, 230),
-             "(e)": (WINDOW, 16, 16384, 230)}
+             "(e)": (WINDOW, 16, 16384, 230),
+             "(262144, 64)": (262144, 64, 8, 262144 // 9 + 1)}
     max_err = 0.0
     errs = {}
     for i, (label, (window, hop, nwin, k)) in enumerate(cases.items()):

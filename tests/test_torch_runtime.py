@@ -230,6 +230,22 @@ def test_device_jobs_match_jax_queue():
         pq.try_get(pid)
 
 
+def test_result_of_unknown_or_freed_job_is_none_in_both_queues():
+    """`result` of an id never issued, or of a job already freed, returns
+    None in both packages (the JAX queue finds no job and no leaves);
+    `try_get` raises KeyError in both."""
+    jq, pq = jjobs.JobQueue(depth=4), pjobs.JobQueue(depth=4)
+    jid = jq.submit(jax.jit(lambda a: a + 1.0), jnp.zeros(4))
+    pid = pq.submit(lambda a: a + 1.0, torch.zeros(4))
+    for q, i in ((jq, jid), (pq, pid)):
+        assert q.result(i) is not None
+        assert q.result(i + 1000) is None
+        q.free(i)
+        assert q.result(i) is None
+        with pytest.raises(KeyError):
+            q.try_get(i)
+
+
 def test_tensor_leaves():
     a, b, c = torch.zeros(1), torch.ones(2), torch.arange(3)
     tree = (a, {"x": [b, 3, "s"], "y": (c,)}, None)

@@ -11,12 +11,16 @@ shared by every window that holds it, and each window adds its two
 boundary rows (the in-window halves, each with its own masked basis) and
 the chain ``sum_{r=1}^{R-1} W[r] G[q0 + r]`` (``R = window / 128``).
 
-- On a CUDA tensor it launches the kernel (two launches, no fallback);
-  on a CPU tensor it runs `rfft_band_hopped_plain`, the JAX package's
+- On a CUDA tensor it launches the kernel (no fallback): one launch, or
+  two where `launch_plan` has G written by a rows pass first; on a CPU
+  tensor it runs `rfft_band_hopped_plain`, the JAX package's
   formulation in PyTorch (fixed-shape chunked products for G and the
   boundary rows, the chain as a loop over r). The kernel is held to it
   at 1e-6 of the call's largest bin, and both to the float64 rfft of each
   window at 2e-6.
+- `launch_plan(window, hop, nwin, k_bins)` sizes the kernel's tiles of
+  start rows; the wrapper passes it to the kernel, and the CPU tests hold
+  its coverage and shared memory.
 - Every twiddle is an entry of `ops.spectrum.twiddle_table(window)`
   (float32, built in float64), indexed ``(a b) mod window``; `plan`
   gathers the plain version's tables from it.
@@ -49,6 +53,16 @@ from wavespec_tpu_torch.ops.spectrum import twiddle_table
 LANES = 128
 MAX_WINDOW = 1 << 22   # the kernel's twiddle indices stay in 32 bits
 _CHUNK = 128   # rows a fixed-shape product
+
+# The kernel's constants (`csrc/hopped_dft.cu`)
+BINS = 32          # bins a block, one a lane
+GROUP = 8          # start rows of one warp's chain: a tile is a multiple of it
+MAX_TILE = 64      # start rows a tile: eight warps' chains
+ONE_LAUNCH_TILE = 32   # the largest tile that sums its own G (one batch of 64 rows at R = 32)
+SWEEP = 8          # rows one prefix sweep carries: a walk may not be longer
+CHAIN_ROWS = 32    # chain steps a chunk, W rows staged at a time
+SMEM_LIMIT = 232448   # an H100 block's opt-in shared memory
+SMS = 132          # the H100's streaming multiprocessors
 
 
 def hopped_eligible(window: int, hop: int) -> bool:
@@ -189,11 +203,71 @@ def rfft_band_hopped_plain(series: torch.Tensor, window: int, hop: int,
     return torch.view_as_complex(spec.contiguous()).reshape(*lead, nwin, k_bins)
 
 
+class LaunchPlan(NamedTuple):
+    """The kernel's geometry for one call (`launch_plan`)."""
+
+    tile_rows: int    # start rows a block (M)
+    two_pass: bool    # G written by a rows pass first, else summed in each block
+    walk_len: int     # rows of a tile's longest walk q, q + R, q + 2R, ...
+    tiles: int        # tiles of start rows a series
+    bin_tiles: int
+    blocks: int       # blocks of the tile kernel
+    smem_bytes: int   # its dynamic shared memory a block
+
+
+def tile_smem(tile_rows: int, two_pass: bool, snap: bool = False) -> int:
+    """Dynamic shared memory of a block of the tile kernel, as
+    `csrc/hopped_dft.cu::tile_smem` computes it: the basis tile, G and C
+    of the tile's start rows (with `snap`, also the prefixes at phase 64
+    of the start rows and of their boundary rows), then the larger of the
+    G ring (M + 32 rows) with a chunk of W and, in one launch, a batch of
+    series rows (64 rows for M <= 32, else 32), or in two launches room
+    for two chunks of each, and the warps' sweep rows with the T tile (16
+    phases) and the sweeps' row table. It does not grow with R."""
+    row = 8 * BINS
+    fill = 0 if two_pass else (64 if tile_rows <= 32 else 32)
+    stage = row * (tile_rows + 2 * CHAIN_ROWS * (2 if two_pass else 1)) + 4 * LANES * fill
+    sweep = 4 * LANES * SWEEP * 8 + row * 16 + 4 * 2 * SWEEP * 2 * 8
+    return row * (LANES + (4 if snap else 2) * tile_rows) + max(stage, sweep)
+
+
+@lru_cache(maxsize=64)
+def launch_plan(window: int, hop: int, nwin: int, k_bins: int, batch: int = 1) -> LaunchPlan:
+    """The kernel's tile of start rows and its G source, by the rule its
+    H100 readings set (PERF.md section 6): one launch with a tile of up to 32
+    start rows where that fits the call in one block an SM and the R - 1
+    halo rows a tile sums past its own are no more than the tile (at
+    window 4096, MUSIC's seeds (a) and the ridge at 4096 windows (d));
+    else two launches, G written once by a rows pass, with tiles of up to
+    64 start rows, two blocks an SM (the ridge at 16,384 windows (e), long
+    windows). A tile is a multiple of 8, no larger than the start rows
+    rounded up to 8, and short enough that a walk q, q + R, ... of it
+    (``(M + R - 1) // R + 1`` rows) fits a sweep of 8 rows."""
+    r_rows = window // LANES
+    q_starts = (nwin - 1) * hop // LANES + 1
+    bin_tiles = -(-k_bins // BINS)
+    cap = min(GROUP * -(-q_starts // GROUP), GROUP * ((SWEEP - 1) * r_rows // GROUP))
+    tile = min(ONE_LAUNCH_TILE, cap)
+    two_pass = r_rows - 1 > tile or batch * -(-q_starts // tile) * bin_tiles > SMS
+    if two_pass:
+        tile = min(MAX_TILE, cap)
+    tiles = -(-q_starts // tile)
+    return LaunchPlan(tile, two_pass, (tile + r_rows - 1) // r_rows + 1, tiles, bin_tiles,
+                      batch * tiles * bin_tiles, tile_smem(tile, two_pass, snaps(hop, two_pass)))
+
+
+def snaps(hop: int, two_pass: bool) -> bool:
+    """True where the kernel takes the boundary prefixes from the G sums
+    themselves (no sweeps): one launch, and two phases a row (P = 2, the
+    only prefix needed past phase 0 is the one at sample 64)."""
+    return not two_pass and LANES // math.gcd(hop, LANES) == 2
+
+
 def _lib() -> ctypes.CDLL:
     lib = load_library("hopped_dft")
     fn = lib.hopped_dft_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -205,10 +279,13 @@ def _twiddle_tensor(n: int, device: torch.device) -> torch.Tensor:
 
 @lru_cache(maxsize=8)
 def _basis_tensor(n: int, k_bins: int, device: torch.device) -> torch.Tensor:
-    """The kernel's basis E ``[128, K, 2]``: the twiddle table's entries
-    ``(j k) mod n``, gathered once."""
-    idx = np.outer(np.arange(LANES), np.arange(k_bins)) % n
-    return torch.from_numpy(np.ascontiguousarray(twiddle_table(n)[idx])).to(device)
+    """The kernel's basis E ``[128, Kp, 2]``: the twiddle table's entries
+    ``(j k) mod n``, gathered once, zero from K to ``Kp`` (K rounded up to
+    32, so that each block's tile is whole 16-byte rows)."""
+    kp = -(-k_bins // BINS) * BINS
+    e = np.zeros((LANES, kp, 2), dtype=np.float32)
+    e[:, :k_bins] = twiddle_table(n)[np.outer(np.arange(LANES), np.arange(k_bins)) % n]
+    return torch.from_numpy(e).to(device)
 
 
 def rfft_band_hopped(series: torch.Tensor, window: int, hop: int,
@@ -218,23 +295,34 @@ def rfft_band_hopped(series: torch.Tensor, window: int, hop: int,
     nwin, k_bins = _shape(series, window, hop, max_bins)
     if not series.is_cuda:
         return rfft_band_hopped_plain(series, window, hop, max_bins)
+    batch = series.numel() // series.shape[-1]
+    return _launch(series, window, hop, k_bins, launch_plan(window, hop, nwin, k_bins, batch))
+
+
+def _launch(series: torch.Tensor, window: int, hop: int, k_bins: int,
+            lp: LaunchPlan) -> torch.Tensor:
+    """The kernel's launch on a CUDA series under the plan `lp`."""
     if series.dtype != torch.float32 or not series.is_contiguous():
         raise ValueError(f"need a contiguous float32 series, got {series.dtype} "
                          f"{tuple(series.shape)} strides {series.stride()}")
     if window > MAX_WINDOW:
         raise ValueError(f"window {window} past the kernel's {MAX_WINDOW}")
     lead, length = series.shape[:-1], series.shape[-1]
+    nwin = 1 + (length - window) // hop
     batch = series.numel() // length
     q_rows = ((nwin - 1) * hop) // LANES + window // LANES
     out = torch.empty((*lead, nwin, k_bins, 2), dtype=torch.float32, device=series.device)
     if batch:
-        g = torch.empty((batch, q_rows, k_bins, 2), dtype=torch.float32, device=series.device)
+        g = (torch.empty((batch, q_rows, lp.bin_tiles * BINS, 2), dtype=torch.float32,
+                         device=series.device) if lp.two_pass else None)
         with torch.cuda.device(series.device):
             stream = torch.cuda.current_stream().cuda_stream
             status = _lib().hopped_dft_launch(
                 series.data_ptr(), _twiddle_tensor(window, series.device).data_ptr(),
-                _basis_tensor(window, k_bins, series.device).data_ptr(), g.data_ptr(),
-                out.data_ptr(), batch, length, window, hop, k_bins, nwin, q_rows, stream)
+                _basis_tensor(window, k_bins, series.device).data_ptr(),
+                g.data_ptr() if g is not None else None, out.data_ptr(), batch, length,
+                window, hop, k_bins, nwin, q_rows, lp.tile_rows, lp.walk_len,
+                int(lp.two_pass), stream)
         check(status, "hopped_dft_launch")
         rfft_band_hopped.launches += 1
     return torch.view_as_complex(out)
