@@ -129,7 +129,28 @@ It builds the port's six CUDA kernels from `wavespec_tpu_torch/csrc/`
    `BatchFetcher`'s), `v757 --csv` and `inspect`. Every B1-B5 and H1 call
    of the recorded runs (not the 500,000-bar one) is held against its
    plain version as in phase 7;
-9. prints one JSON line with every kernel's record (launches summed over
+9. drives the multi-device forms (`mesh_phase`) on a virtual mesh of
+   eight entries over the card, each path a main path of its own with the
+   counts reset before and read after: (o) `pipeline_step_sharded` at the
+   flagship config and the FFT ridge's `extract_batch_sharded` on 1024
+   symbols x 32 windows at hop 256 (`benchmarks/bench_multiseries.py`'s
+   shape, `tests/test_mesh.py`'s noisy sines), each against one unsharded
+   call on the card (bitwise, or within `testing.limits_for` with the
+   differing fields and the first differing MUSIC stage named), its first
+   8 symbols against the CPU and the planted periods; (p)
+   `run_v757_batch_sharded` at `V757Config()` on 1024 symbols x 512
+   frames, bitwise equal to `run_v757_batch(..., symbol_chunk=128)`, its
+   first 8 symbols against the CPU; (q) `fft_segmented_sharded` at the
+   dry run's shape and at 500,000 bars, in each mix mode, within 1e-6 of
+   the one-device `fft_segmented`; and `dryrun_multichip(8,
+   devices=[cuda:0] * 8)` against the JAX package's recorded shapes.
+   Every B1-B5 and H1 call of one run of (o) and (p) is held against its
+   plain version as in phase 7; each path's ms a call sharded and
+   unsharded, host ms, device operations, busy share and peak memory, and
+   the host syncs of (o) and (p) are printed. With two cards or more,
+   (o)-(q) run again on distinct cards, bitwise against a virtual mesh of
+   as many entries; with one card a line says so;
+10. prints one JSON line with every kernel's record (launches summed over
    every main path), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no
@@ -1465,8 +1486,8 @@ def online_fleet(dev, tag, counters, reset_counts) -> tuple[dict, dict]:
             del windows
             if b == V757_SYMBOLS:
                 wants[branch] = want
-                idx[branch] = card_vs_cpu(f"resumable one-shot, {branch} branch", cfg, xc_host,
-                                          xc, want, dev)
+                idx[branch] = card_vs_cpu(f"(h) resumable one-shot, {branch} branch", cfg,
+                                          xc_host, xc, want, dev)
             del want
     sweep = branch_sweep(big, tag)
 
@@ -1582,12 +1603,12 @@ def card_vs_cpu(label, cfg, xc_host, xc, want, dev, n_cpu: int = 8) -> torch.Ten
     cpu = {k: v.numpy() for k, v in run_v757_batch(xc_host[:n_cpu], cpu_cfg, device="cpu").items()}
     card = {k: v[:n_cpu].cpu().numpy() for k, v in want.items()}
     bad, excused = v757_readings(card, cpu, rank_flips=flips)
-    log(f"(h) {label}, first {n_cpu} symbols: card spectra within {spec_err:.3e} of the CPU's "
+    log(f"{label}, first {n_cpu} symbols: card spectra within {spec_err:.3e} of the CPU's "
         f"(tol 1e-4); candidate lists differ on {int(flips.sum())} of {flips.size} frames; "
         f"outputs agree with the CPU run of the port on every slot but {len(excused)} of "
         f"{n_cpu * 12} slot tracks excused after a rank flip (at most 2): {excused}")
     if bad or spec_err > 1e-4 or len(excused) > 2:
-        raise AssertionError(f"(h) {label}, card vs CPU: {bad}; spectra {spec_err:.3e}; "
+        raise AssertionError(f"{label}, card vs CPU: {bad}; spectra {spec_err:.3e}; "
                              f"diverging slots {excused}")
     return idx
 
@@ -2588,6 +2609,508 @@ def host_surface(dev, tag, counters, reset_counts) -> dict:
     return {"launches": launches, "readings": readings}
 
 
+# Phase 9, the mesh: BASELINE config #5's fleet (1024 symbols) on eight
+# shards, as `benchmarks/bench_multiseries.py` frames it (32 windows at
+# hop 256), and the long window at the bridge's 500,000 bars.
+MESH_SHARDS = 8
+FLEET_SYMBOLS, FLEET_WINDOWS, FLEET_HOP = 1024, 32, 256
+LONG_BARS = 500_000
+# The shapes the JAX package's `dryrun_multichip(8)` recorded (`MULTICHIP_r05.json`).
+DRYRUN_SHAPES = {"mesh": {"data": 4, "window": 2}, "attrs": (8, 3, 4, 15), "waves": (8, 3, 2),
+                 "v757_slots": (4, 17, 12), "power": (8192,)}
+
+
+def fleet_series() -> np.ndarray:
+    """1024 symbols of `planted_series` (seeds SEED + 40 + b), 4096 + 31 x
+    256 bars each: 32 windows at hop 256, `bench_multiseries.py`'s shape.
+    The series on which the port's float32 MUSIC limits were read."""
+    n = WINDOW + (FLEET_WINDOWS - 1) * FLEET_HOP
+    return np.stack([planted_series(n, SEED + 40 + b) for b in range(FLEET_SYMBOLS)])
+
+
+def noisy_sines(noise: float) -> np.ndarray:
+    """The JAX package's mesh test series (`tests/test_mesh.py::make_batch`,
+    seed 0) at the fleet's shape: one sine a symbol, its period drawn
+    uniformly in [20, 180) bars, plus white noise of `noise` (0.05 in the
+    test; `bench_multiseries.py` draws the sines without it)."""
+    n = WINDOW + (FLEET_WINDOWS - 1) * FLEET_HOP
+    rng = np.random.default_rng(0)
+    periods = rng.uniform(20, 180, size=FLEET_SYMBOLS)
+    t = np.arange(n)
+    x = (np.sin(2 * np.pi * t[None, :] / periods[:, None])
+         + noise * rng.standard_normal((FLEET_SYMBOLS, n)))
+    return x.astype(np.float32)
+
+
+def windows_beyond(got: np.ndarray, ref: np.ndarray, limits) -> tuple[dict, int]:
+    """attrs ``[S, T, k, 15]`` against a reference at `limits`: (each
+    symbol's largest share of a limit, inf where a resolved slot's validity
+    or method differs; the number of windows beyond a limit)."""
+    from wavespec_tpu_torch.testing import attrs_readings
+
+    worst, over = {}, 0
+    for b in range(got.shape[0]):
+        problems, use = attrs_readings(got[b], ref[b], limits=limits)
+        worst[b] = float("inf") if problems else max(use.values())
+        if worst[b] > 1.0:
+            over += sum(1 for t in range(got.shape[1])
+                        if (lambda r: r[0] or max(r[1].values()) > 1.0)(
+                            attrs_readings(got[b, t][None], ref[b, t][None], limits=limits)))
+    return worst, over
+
+
+def sync_all(devices) -> None:
+    for d in set(devices):
+        torch.cuda.synchronize(d)
+
+
+def peak_mib(fn, dev) -> float:
+    """Peak memory on `dev` of one call of `fn()`, MiB above what was
+    allocated before it."""
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = fn()
+    torch.cuda.synchronize(dev)
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+    del out
+    return peak
+
+
+def host_ms(fn, devices, runs: int = 5) -> float:
+    """Median over `runs` of a call of `fn()` on the host's clock, every
+    device of the mesh synchronised before and after."""
+    times = []
+    for _ in range(runs):
+        sync_all(devices)
+        t0 = time.perf_counter()
+        fn()
+        sync_all(devices)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def mesh_readings(label, sharded, unsharded, one_shard, devices, tag) -> dict:
+    """A phase 9 path's readings: ms a call sharded and unsharded (CUDA
+    events, median of 5 after a warm-up), host ms of the sharded call,
+    device operations and device time of one traced sharded call (summed
+    over the mesh's devices), busy share (device time over the call's
+    time) and peak memory on the first device of the sharded call, of
+    one shard's call alone and of the unsharded call."""
+    r = dict(ms=cuda_ms(sharded, warmup=1), unsharded_ms=cuda_ms(unsharded, warmup=1),
+             host_ms=host_ms(sharded, devices))
+    r["ops"], r["dev_ms"] = profile_call(sharded)
+    r["busy"] = r["dev_ms"] / r["ms"]
+    r.update(peak=peak_mib(sharded, devices[0]), shard_peak=peak_mib(one_shard, devices[0]),
+             unsharded_peak=peak_mib(unsharded, devices[0]))
+    log(f"mesh {label}: sharded {r['ms']:.3f} ms a call, unsharded {r['unsharded_ms']:.3f} ms "
+        f"(CUDA events, median of 5); host {r['host_ms']:.3f} ms a sharded call; "
+        f"{r['ops']} device operations, device time {r['dev_ms']:.3f} ms (traced), busy share "
+        f"{100 * r['busy']:.1f}%; peak memory above the inputs: sharded call "
+        f"{r['peak']:.1f} MiB, one shard alone {r['shard_peak']:.1f} MiB, unsharded "
+        f"{r['unsharded_peak']:.1f} MiB {tag}")
+    return r
+
+
+def host_syncs(fn) -> dict:
+    """`fn()` once under `torch.cuda.set_sync_debug_mode("warn")`: each
+    operation that made the host wait on the card, counted by the
+    innermost line of the port that led to it (else of this script, else
+    the line that warned)."""
+    import traceback
+    import warnings
+
+    found = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frames = traceback.extract_stack()[:-1]
+        where = f"{filename}:{lineno}"
+        for inside in (ROOT / "wavespec_tpu_torch", ROOT):
+            mine = [f for f in frames if f.filename.startswith(str(inside))]
+            if mine:
+                where = f"{Path(mine[-1].filename).relative_to(ROOT)}:{mine[-1].lineno}"
+                break
+        found[where] = found.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")   # the switch itself warns once
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return found
+
+
+def music_stages(x: torch.Tensor, cfg, hop: int) -> dict:
+    """The flagship MUSIC step's stages on ``x [S, L]``, in the order
+    `MusicExtractor.forward` computes them."""
+    from wavespec_tpu_torch.analyze.music import (_autocov_toeplitz, band_precondition_windows,
+                                                  music_pseudospectrum)
+    from wavespec_tpu_torch.extract import extractor
+    from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
+
+    m = extractor(cfg, x.device)
+    hp = m.main_hp(x - x[..., :1])[..., 0, :]
+    band_w = list(band_precondition_windows(hp, cfg, hop, m.band_hp))
+    return {"the series high-pass (HighpassMXU's product)": [hp],
+            "the band preconditioning": band_w,
+            "the seeds (H1)": [rfft_band_hopped(hp.contiguous(), cfg.window, hop,
+                                                m.tables.k_max + 1)],
+            "the covariances": [_autocov_toeplitz(b, cfg.ar_order) for b in band_w],
+            "the pseudospectrum": [music_pseudospectrum(band_w, cfg, m.tables)[0]]}
+
+
+def first_differing_stage(x: torch.Tensor, rows: slice, cfg, hop: int) -> str:
+    """The first MUSIC stage at which the rows `rows` of ``x`` computed
+    alone (a shard) and within the whole batch are not bitwise equal."""
+    alone = music_stages(x[rows].clone(), cfg, hop)
+    whole = music_stages(x, cfg, hop)
+    for name, parts in whole.items():
+        for a, w in zip(alone[name], parts):
+            if not torch.equal(a, w[rows]):
+                err = (a - w[rows]).abs().max().item() / w[rows].abs().max().item()
+                return f"{name}, within {err:.3e} of its largest value"
+    return "none up to the pseudospectrum: a later stage (selection, refinement, fit, attrs)"
+
+
+def resolved_wave_mismatches(attrs_ref, wave, wave_ref) -> list[str]:
+    """The decoded waves compared on the resolved slots of `attrs_ref`
+    (as `preset_card_vs_cpu` compares them; numpy in)."""
+    from wavespec_tpu_torch.testing import decode_mismatches
+
+    amp = attrs_ref[..., 0]
+    res = ((amp > 0) & (amp >= 0.05 * amp.max(axis=-1, keepdims=True)))[..., :wave.shape[-1]]
+    return decode_mismatches({"wave": np.where(res, wave, 0.0)},
+                             {"wave": np.where(res, wave_ref, 0.0)})
+
+
+def fleet_extraction(dev, tag, path_launches, mesh, x_host) -> dict:
+    """(o): `pipeline_step_sharded` at the flagship config and the FFT
+    ridge's `extract_batch_sharded` at the same shapes on `mesh`; each
+    against one unsharded call on the same card (bitwise, or within
+    `testing.limits_for` with the fields that differ and the first MUSIC
+    stage that does), its first 8 symbols against the CPU, its planted
+    periods, every B1, B2 and H1 call of one run against its plain
+    version, and its readings. Returns each path's readings and, for
+    MUSIC, the host syncs of a sharded call."""
+    from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig, decode_causal,
+                                    extract_cycles_batch)
+    from wavespec_tpu_torch.mesh import (extract_batch_sharded, pipeline_step_sharded,
+                                         shard_series_batch)
+    from wavespec_tpu_torch.testing import attrs_mismatches, attrs_readings, limits_for
+
+    cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
+                        method=Method.MUSIC, ar_order=10)
+    ridge = dataclasses.replace(cfg, method=Method.FFT_RIDGE)
+    rcfg = ReconstructConfig()
+    hop, devices = FLEET_HOP, mesh.axis_devices("data")
+    rows = slice(0, FLEET_SYMBOLS // len(devices))
+    x = torch.from_numpy(x_host).to(dev)
+    xs = shard_series_batch(x, mesh)
+
+    def step(series, ecfg):
+        attrs = extract_cycles_batch(series, ecfg, hop=hop)
+        return attrs, decode_causal(attrs, rcfg)["wave"]
+
+    paths = {
+        "MUSIC": (lambda: pipeline_step_sharded(xs, mesh=mesh, ecfg=cfg, rcfg=rcfg, hop=hop),
+                  lambda: step(x, cfg), lambda: step(xs.shards[0], cfg),
+                  ("jacobi_eigh", "music_select", "hopped_dft"), cfg),
+        "FFT ridge": (lambda: (extract_batch_sharded(xs, ridge, hop=hop, mesh=mesh),),
+                      lambda: (extract_cycles_batch(x, ridge, hop=hop),),
+                      lambda: extract_cycles_batch(xs.shards[0], ridge, hop=hop),
+                      ("hopped_dft",), ridge),
+    }
+    out = {}
+    for name, (sharded, unsharded, one_shard, want, ecfg) in paths.items():
+        label = f"(o) {name}"
+        _, calls = record_calls(sharded)                  # the warm-up run
+        check_preset_calls(calls, f"mesh {label}")
+        del calls
+        got = path_launches(f"mesh {label}", sharded, want)
+        ref = unsharded()
+        attrs, attrs_ref = got[0], ref[0]
+        nwin = FLEET_WINDOWS
+        if tuple(attrs.shape) != (FLEET_SYMBOLS, nwin, cfg.top_k, 15) or not (
+                torch.isfinite(attrs).all() and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"mesh {label}: attrs {tuple(attrs.shape)} malformed")
+        a, r = attrs.cpu().numpy(), attrs_ref.cpu().numpy()
+        same = all(torch.equal(g, w) for g, w in zip(got, ref))
+        if same:
+            how = "bitwise equal to one unsharded call on the same card (attrs and waves)"
+        else:
+            differ = {f: float(np.abs(a[..., f] - r[..., f]).max()) for f in range(15)
+                      if not np.array_equal(a[..., f], r[..., f])}
+            bad = attrs_mismatches(a, r, limits=limits_for(ecfg.method))
+            if len(got) > 1:
+                bad += resolved_wave_mismatches(r, got[1].cpu().numpy(), ref[1].cpu().numpy())
+            stage = (first_differing_stage(x, rows, ecfg, hop) if ecfg is cfg
+                     else "the ridge: H1, then elementwise attrs")
+            if bad:
+                raise AssertionError(f"mesh {label}: sharded against unsharded {bad}; first "
+                                     f"differing stage {stage}")
+            use = attrs_readings(a, r, limits=limits_for(ecfg.method))[1]
+            top = sorted(use.items(), key=lambda kv: -kv[1])[:4]
+            how = (f"not bitwise equal to one unsharded call on the same card: attrs fields "
+                   f"(index: largest |diff|) {differ}, first differing stage on shard 0: "
+                   f"{stage}; within testing.limits_for({ecfg.method.name}) (largest shares "
+                   f"of the limit {', '.join(f'{k} {u:.3f}' for k, u in top)})"
+                   + (", resolved waves within the wave's limit" if len(got) > 1 else ""))
+        cpu = step(torch.from_numpy(x_host[:8]), ecfg)
+        bad = attrs_mismatches(a[:8], cpu[0].numpy(), limits=limits_for(ecfg.method))
+        if len(got) > 1:
+            bad += resolved_wave_mismatches(cpu[0].numpy(), got[1][:8].cpu().numpy(),
+                                            cpu[1].numpy())
+        if bad:
+            raise AssertionError(f"mesh {label}: first 8 symbols card vs CPU {bad}")
+        f64 = np.concatenate([extract_cycles_batch(torch.from_numpy(x_host[lo:lo + 128]).double(),
+                                                   ecfg, hop=hop).numpy()
+                              for lo in range(0, FLEET_SYMBOLS, 128)])
+        worst, over = windows_beyond(a, f64, limits_for(ecfg.method))
+        log(f"mesh {label} (read, not held): the sharded call against the CPU in float64, "
+            f"{over} of {FLEET_SYMBOLS * nwin} windows beyond testing.limits_for("
+            f"{ecfg.method.name}); largest share of a limit {max(worst.values()):.3f}")
+        top2 = np.sort(a[:, -1, :2, 2], axis=-1)
+        miss = np.abs(top2 / [50.0, 120.0] - 1.0).max(axis=-1)
+        if not (miss <= 0.01).all():
+            raise AssertionError(f"mesh {label}: newest top-2 periods off 50 and 120 bars on "
+                                 f"{int((miss > 0.01).sum())} symbols")
+        log(f"mesh {label}: {FLEET_SYMBOLS} symbols x {nwin} windows (hop {hop}) on "
+            f"{mesh.shape} ({[str(d) for d in devices]}): {how}; first 8 symbols against the "
+            f"CPU within testing.limits_for({ecfg.method.name}); every symbol's newest top-2 "
+            f"periods within 1% of the planted 50 and 120 bars")
+        del got, ref, cpu
+        out[name] = dict(readings=mesh_readings(label, sharded, unsharded, one_shard, devices,
+                                                tag),
+                         syncs=host_syncs(sharded) if name == "MUSIC" else None)
+    return out
+
+
+def noisy_sine_witness(dev, mesh, noise: float) -> None:
+    """(o) MUSIC on `noisy_sines(noise)`, read but not held: with one sine
+    a symbol and little noise the float32 pseudospectrum keeps too few
+    digits at its peaks for `testing.limits_for(MUSIC)` to bound two
+    float32 runs (ROADMAP D). Prints, for the sharded call against one
+    unsharded call on the card, the fields that differ, the windows
+    beyond the limits and the first differing stage; and for the four
+    symbols read farthest apart, the sharded call, the unsharded call and
+    the CPU in float32, each against the CPU in float64 (shares of the
+    limits)."""
+    from wavespec_tpu_torch import ExtractConfig, Method, extract_cycles_batch
+    from wavespec_tpu_torch.mesh import extract_batch_sharded
+    from wavespec_tpu_torch.testing import attrs_readings, limits_for
+
+    cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
+                        method=Method.MUSIC, ar_order=10)
+    limits = limits_for(cfg.method)
+    x_host = noisy_sines(noise)
+    x = torch.from_numpy(x_host).to(dev)
+    got = extract_batch_sharded(x, cfg, hop=FLEET_HOP, mesh=mesh).cpu().numpy()
+    ref = extract_cycles_batch(x, cfg, hop=FLEET_HOP).cpu().numpy()
+    differ = [f for f in range(15) if not np.array_equal(got[..., f], ref[..., f])]
+    worst, over = windows_beyond(got, ref, limits)
+    rows = slice(0, FLEET_SYMBOLS // len(mesh.axis_devices("data")))
+    label = f"mesh (o) MUSIC on sines with noise {noise}"
+    log(f"{label} (read, not held): sharded against unsharded, attrs fields {differ} not "
+        f"bitwise equal; {over} of {FLEET_SYMBOLS * FLEET_WINDOWS} windows beyond "
+        f"testing.limits_for(MUSIC), on {sum(v > 1.0 for v in worst.values())} symbols; "
+        f"first differing stage on shard 0: {first_differing_stage(x, rows, cfg, FLEET_HOP)}")
+    picks = sorted(worst, key=lambda b: -worst[b])[:4]
+    cpu = torch.from_numpy(x_host[picks])
+    f32 = extract_cycles_batch(cpu, cfg, hop=FLEET_HOP).numpy()
+    f64 = extract_cycles_batch(cpu.double(), cfg, hop=FLEET_HOP).numpy()
+    for i, b in enumerate(picks):
+        shares = {name: attrs_readings(a, f64[i], limits=limits)[1]
+                  for name, a in (("sharded", got[b]), ("unsharded", ref[b]), ("CPU", f32[i]))}
+        top = {name: {k: round(v, 2) for k, v in use.items() if v > 0.5}
+               for name, use in shares.items()}
+        log(f"{label}, symbol {b}: sharded against unsharded {worst[b]:.2f} x the limit at "
+            f"most; each float32 run against the CPU in float64 (shares of the limits above "
+            f"0.5): {top}")
+
+
+def fleet_analytics(dev, tag, path_launches, mesh) -> dict:
+    """(p): `run_v757_batch_sharded` at `V757Config()` over 1024 symbols x
+    512 frames (`bench_series`) on `mesh`: bitwise equal to
+    `run_v757_batch(x, cfg, symbol_chunk=128)` (the same work a shard
+    does), against the unchunked call (which fields differ, reported),
+    the first 8 symbols against the CPU (`card_vs_cpu`), the planted
+    periods, every B3-B5 call of one run against its plain version, and
+    its readings."""
+    from wavespec_tpu_torch import V757Config, run_v757_batch
+    from wavespec_tpu_torch.mesh import shard_series_batch
+    from wavespec_tpu_torch.pipeline.v757 import run_v757_batch_sharded
+
+    cfg = V757Config()
+    devices = mesh.axis_devices("data")
+    chunk = FLEET_SYMBOLS // len(devices)
+    x_host = bench_series(FLEET_SYMBOLS, V757_FRAMES)
+    x = torch.from_numpy(x_host).to(dev)
+    xs = shard_series_batch(x, mesh)
+    sharded = lambda: run_v757_batch_sharded(xs, cfg, mesh=mesh)
+    _, calls = record_calls(sharded)                      # the warm-up run
+    check_preset_calls(calls, "mesh (p)")
+    del calls
+    out = path_launches("mesh (p)", sharded, ("band_dft", "tracker", "v757_tail"))
+    bad = bitwise_diff(out, run_v757_batch(x, cfg, symbol_chunk=chunk))
+    if bad:
+        raise AssertionError(f"mesh (p): sharded differs from run_v757_batch(symbol_chunk="
+                             f"{chunk}) in {bad}")
+    whole = bitwise_diff(out, run_v757_batch(x, cfg))
+    for k, v in out.items():
+        want = (FLEET_SYMBOLS, V757_FRAMES) + (() if k in ("confluence", "kalman") else (12,))
+        if tuple(v.shape) != want or (v.is_floating_point() and not torch.isfinite(v).all()):
+            raise AssertionError(f"mesh (p): {k} {tuple(v.shape)} not finite/{want}")
+    planted = torch.tensor([planted_period(b) for b in range(FLEET_SYMBOLS)], device=dev)[:, None]
+    last_p, last_v = out["slot_period"][:, -1], out["slot_valid"][:, -1]
+    if not (last_v & ((last_p - planted).abs() <= 0.02 * planted)).any(-1).all():
+        raise AssertionError("mesh (p): a symbol without a valid slot within 2% of its "
+                             "planted period on the last frame")
+    card_vs_cpu("mesh (p) run_v757_batch_sharded", cfg, x_host, x[:8], out, dev)
+    log(f"mesh (p): {FLEET_SYMBOLS} symbols x {V757_FRAMES} frames on {mesh.shape}: bitwise "
+        f"equal in every field to run_v757_batch(x, cfg, symbol_chunk={chunk}) on the same "
+        f"card; against the unchunked call, fields not bitwise equal: {whole or 'none'}; every "
+        f"symbol has a valid slot within 2% of its planted period on the last frame")
+    readings = mesh_readings("(p)", sharded, lambda: run_v757_batch(x, cfg),
+                             lambda: run_v757_batch(xs.shards[0], cfg), devices, tag)
+    return dict(readings=readings, syncs=host_syncs(sharded))
+
+
+def long_window(dev, tag, path_launches, mesh_for) -> dict:
+    """(q): `fft_segmented_sharded` at the dry run's shape (n = 32768,
+    segment 16384, overlap 0) on a 2-device window axis, and at 500,000
+    bars (segment 16384, overlap 4096) on an 8-device one, in each mix
+    mode, against the one-device `fft_segmented` on the same card at the
+    overlap used (the requested one where its segment count divides the
+    axis, else `solve_overlap`'s), within 1e-6 of the largest |value|.
+    Readings at 500,000 bars, ENERGY."""
+    from wavespec_tpu_torch.mesh import (MixMode, fft_segmented, fft_segmented_sharded,
+                                         num_segments, solve_overlap)
+
+    out = {}
+    for k, n, seg, overlap in ((2, 32768, 16384, 0), (8, LONG_BARS, 16384, 4096)):
+        mesh = mesh_for(k)
+        x = torch.from_numpy(planted_series(n, SEED + 30)).to(dev)
+        nseg = num_segments(n, seg, overlap)
+        used = overlap if nseg % k == 0 else solve_overlap(n, seg, k, overlap)
+        errs = {}
+        for mode in MixMode:
+            call = lambda: fft_segmented_sharded(x, mesh, axis="window", segment_len=seg,
+                                                 overlap=overlap, mix_mode=mode)
+            got = (path_launches(f"mesh (q) {n} {mode.name}", call, ()) if mode == MixMode.ENERGY
+                   else call())
+            one = fft_segmented(x, seg, used, mode)
+            err = ((got - one).abs().max() / one.abs().max()).item()
+            if not (got.shape == one.shape == (seg // 2,) and err <= 1e-6
+                    and torch.isfinite(torch.view_as_real(got) if got.is_complex() else got).all()):
+                raise AssertionError(f"mesh (q) n={n} {mode.name}: {err:.3e} off fft_segmented")
+            errs[mode.name] = "bitwise" if torch.equal(got, one) else err
+            out[n, mode.name] = got
+        log(f"mesh (q) n={n}, segment {seg}, overlap {overlap} on {mesh.shape}: {nseg} "
+            f"segments at the requested overlap, overlap used {used}"
+            f"{' (solved)' if used != overlap else ' (kept: its segments divide the axis)'}; "
+            f"against the one-device fft_segmented on the same card (largest |diff| over the "
+            f"largest |value|, tol 1e-6): {errs}")
+        if n == LONG_BARS:
+            out["readings"] = mesh_readings(
+                f"(q) {n} bars ENERGY", lambda: fft_segmented_sharded(
+                    x, mesh, axis="window", segment_len=seg, overlap=overlap),
+                lambda: fft_segmented(x, seg, used),
+                lambda: fft_segmented(x[:seg + (nseg // k - 1) * (seg - used)], seg, used),
+                mesh.axis_devices("window"), tag)
+    return out
+
+
+def distinct_cards(dev, tag) -> None:
+    """(o) MUSIC, (p) and (q) at 500,000 bars on k distinct cards (k the
+    largest of 2, 4, 8 that the host has) against a virtual mesh of k
+    entries over `dev`: bitwise equal, each timed (CUDA events on the
+    first card, median of 5, and host ms with every card synchronised).
+    With one card, a line says that this run did not take place."""
+    from wavespec_tpu_torch import ExtractConfig, Method, V757Config
+    from wavespec_tpu_torch.mesh import fft_segmented_sharded, make_mesh, pipeline_step_sharded
+    from wavespec_tpu_torch.pipeline.v757 import run_v757_batch_sharded
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        log(f"mesh: one card present (torch.cuda.device_count() = {n_cards}); the "
+            f"distinct-card run did not take place")
+        return
+    k = max(d for d in (2, 4, 8) if d <= n_cards)
+    cfg = ExtractConfig(window=WINDOW, top_k=4, min_period=9.0, max_period=200.0,
+                        method=Method.MUSIC, ar_order=10)
+    x_o = torch.from_numpy(fleet_series()).to(dev)
+    x_p = torch.from_numpy(bench_series(FLEET_SYMBOLS, V757_FRAMES)).to(dev)
+    x_q = torch.from_numpy(planted_series(LONG_BARS, SEED + 30)).to(dev)
+    runs = {
+        "(o)": lambda m: pipeline_step_sharded(x_o, mesh=m, ecfg=cfg, hop=FLEET_HOP),
+        "(p)": lambda m: tuple(run_v757_batch_sharded(x_p, V757Config(), mesh=m).values()),
+        "(q)": lambda m: (fft_segmented_sharded(x_q, m, axis="window", segment_len=16384,
+                                                overlap=4096),),
+    }
+    for name, run in runs.items():
+        axis = "window" if name == "(q)" else "data"
+        distinct = make_mesh({axis: k})
+        same = make_mesh({axis: k}, devices=[dev] * k)
+        got, want = run(distinct), run(same)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"mesh {name} on {k} distinct cards differs from a "
+                                 f"virtual mesh of {k} entries")
+        devices = distinct.axis_devices(axis)
+        ms = [cuda_ms(lambda: run(m), warmup=1) for m in (distinct, same)]
+        log(f"mesh {name} on {k} distinct cards {[str(d) for d in devices]}: bitwise "
+            f"equal to the virtual mesh of {k} entries on {dev}; {ms[0]:.3f} ms a call "
+            f"(virtual {ms[1]:.3f} ms), host {host_ms(lambda: run(distinct), devices):.3f} "
+            f"ms {tag}")
+
+
+def mesh_phase(dev, tag, counters, reset_counts) -> dict:
+    """Phase 9: the multi-device forms on a virtual mesh of eight entries
+    over `dev`, each path a main path of its own with every launch count
+    set to 0 just before and read just after: (o) the fleet extraction,
+    (p) the fleet analytics, (q) the long window, and
+    `dryrun_multichip(8, devices=[dev] * 8)`; then, where there are two
+    cards or more, (o)-(q) on distinct cards, bitwise against a virtual
+    mesh of as many entries."""
+    from wavespec_tpu_torch.entry import dryrun_multichip
+    from wavespec_tpu_torch.mesh import make_mesh
+
+    launches = {}
+    path_launches = _path_launches(launches, counters, reset_counts)
+    virtual = make_mesh({"data": MESH_SHARDS}, devices=[dev] * MESH_SHARDS)
+    o = fleet_extraction(dev, tag, path_launches, virtual, fleet_series())
+    for noise in (0.05, 0.0):
+        noisy_sine_witness(dev, virtual, noise)
+    p = fleet_analytics(dev, tag, path_launches, virtual)
+    q = long_window(dev, tag, path_launches,
+                    lambda k: make_mesh({"window": k}, devices=[dev] * k))
+    for label, syncs in (("(o) MUSIC", o["MUSIC"]["syncs"]), ("(p)", p["syncs"])):
+        log(f"mesh {label}: host syncs of one sharded call under "
+            f"torch.cuda.set_sync_debug_mode('warn'), by line: {syncs}")
+    shapes = path_launches("mesh dryrun_multichip",
+                           lambda: dryrun_multichip(MESH_SHARDS, devices=[dev] * MESH_SHARDS),
+                           ("jacobi_eigh", "music_select", "hopped_dft", "band_dft", "tracker",
+                            "v757_tail"))
+    if shapes != DRYRUN_SHAPES:
+        raise AssertionError(f"dryrun_multichip: {shapes}, the JAX package's {DRYRUN_SHAPES}")
+    log(f"mesh dryrun_multichip(8, devices=[{dev}] * 8): {shapes}, the shapes of the JAX "
+        f"package's dry run (MULTICHIP_r05.json)")
+
+    distinct_cards(dev, tag)
+    log(f"mesh launches by path: {launches}")
+    return {"launches": launches, "readings": {
+        "o": {k: v["readings"] for k, v in o.items()}, "p": p["readings"],
+        "q": q["readings"]}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card only")
@@ -3023,12 +3546,15 @@ def main() -> None:
     presets = model_presets(dev, tag, counters, reset_counts)
     # ---- 8. the host surface, each a main path of its own ----
     host = host_surface(dev, tag, counters, reset_counts)
+    # ---- 9. the mesh, each path a main path of its own ----
+    mesh = mesh_phase(dev, tag, counters, reset_counts)
     for path in (*methods["launches"].values(), *live["launches"].values(),
-                 *presets["launches"].values(), *host["launches"].values()):
+                 *presets["launches"].values(), *host["launches"].values(),
+                 *mesh["launches"].values()):
         for k, n in path.items():
             launches[k] += n
 
-    # ---- 9. the kernel records ----
+    # ---- 10. the kernel records ----
     sources = {
         "jacobi_eigh": "wavespec_tpu/kernels/jacobi_pallas.py:121",
         "music_select": "wavespec_tpu/kernels/music_select_pallas.py:214",

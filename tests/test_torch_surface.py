@@ -42,17 +42,6 @@ EXCEPTIONS = {
     ("kernels/__init__.py", "dft_factors"): "kept with the FFT helpers, `ops.spectrum.dft_factors`",
     ("ops/gather.py", None): "one-hot gathers for the TPU; the port indexes plainly",
     ("utils/vma.py", None): "shard_map vma plumbing; nothing to replace on one card",
-    # Multi-device forms: the port targets one card, where the mesh's `data`
-    # axis is the batch dimension; a four-card form waits for a four-chip cell.
-    ("mesh/mesh.py", None): "multi-device mesh",
-    ("mesh/segmented.py", "fft_segmented_sharded"): "multi-device",
-    ("mesh/__init__.py", "fft_segmented_sharded"): "multi-device",
-    ("mesh/__init__.py", "extract_batch_sharded"): "multi-device",
-    ("mesh/__init__.py", "make_mesh"): "multi-device",
-    ("mesh/__init__.py", "pipeline_step_sharded"): "multi-device",
-    ("mesh/__init__.py", "shard_series_batch"): "multi-device",
-    ("pipeline/v757.py", "run_v757_batch_sharded"): "multi-device",
-    ("pipeline/__init__.py", "run_v757_batch_sharded"): "multi-device",
     # Waits for the port's benchmark harness.
     ("cli.py", "cmd_bench"): "`bench` runs the TPU harness `bench.py`; the port's waits "
                              "for a CUDA benchmark",

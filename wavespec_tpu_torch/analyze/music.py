@@ -524,7 +524,7 @@ def _refine_freq(windows: torch.Tensor, freq: torch.Tensor, step: torch.Tensor,
         c, s = _trig_dot(xr, *_factored_trig(ff, n // n2, n2))
         return (c * c + s * s).reshape(f.shape)
 
-    offsets = torch.tensor([-1.0, 0.0, 1.0], dtype=freq.dtype, device=freq.device)
+    offsets = torch.arange(-1, 2, dtype=freq.dtype, device=freq.device)   # no host copy
     p = None
     for _ in range(iters):
         p = periodogram(freq[..., None] + step[..., None] * offsets)
@@ -555,7 +555,7 @@ def _refine_freq_moments(windows: torch.Tensor, freq: torch.Tensor,
 
     f0 = freq
     u = torch.arange(n1, dtype=windows.dtype, device=windows.device)
-    offsets = torch.tensor([-1.0, 0.0, 1.0], dtype=freq.dtype, device=freq.device)
+    offsets = torch.arange(-1, 2, dtype=freq.dtype, device=freq.device)   # no host copy
     p = None
     for _ in range(iters):
         cand = freq[..., None] + step[..., None] * offsets      # [..., k, 3]

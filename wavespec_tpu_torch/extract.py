@@ -256,7 +256,7 @@ def frame_series(series: torch.Tensor, window: int, hop: int) -> torch.Tensor:
     return series.unfold(-1, window, hop)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _series_highpass(trend_period: int, device: torch.device,
                      dtype: torch.dtype = torch.float32):
     from wavespec_tpu_torch.ops.detrend import HighpassMXU
@@ -279,12 +279,12 @@ def frame_highpassed(series: torch.Tensor, window: int, hop: int,
     package's scan); ``alpha^j`` is built in float64 and cast. Computed in
     float64 for a float64 series (CPU only), in float32 otherwise.
     """
+    from wavespec_tpu_torch.ops.detrend import _ehlers_consts
+
     dtype = torch.float64 if series.dtype == torch.float64 else torch.float32
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    wf = 2.0 * np.pi / trend_period
-    alpha = (1.0 - np.sin(wf)) / np.cos(wf)
+    alpha, _ = _ehlers_consts(trend_period)
     c = (1.0 - alpha) / 2.0
-    aj = torch.from_numpy((alpha ** np.arange(window)).astype(np_dtype))
     series = series.to(dtype)
     hp_s = _series_highpass(trend_period, series.device, dtype)(series)[..., 0, :]
     trend_s = series - hp_s
@@ -293,8 +293,20 @@ def frame_highpassed(series: torch.Tensor, window: int, hop: int,
     p0 = series[..., ::hop][..., :nwin]
     t0 = trend_s[..., ::hop][..., :nwin]
     delta = float(np_dtype(2.0 * c)) * p0 - t0
-    out = delta[..., None] * aj.to(series.device)
+    out = delta[..., None] * _alpha_powers(window, trend_period, dtype, series.device)
     return torch.sub(framed, out, out=out)   # one window-sized buffer
+
+
+@lru_cache(maxsize=32)
+def _alpha_powers(window: int, trend_period: int, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """``alpha^j``, j < window, built in float64 and cast, on `device` once:
+    a copy from pageable host memory makes the host wait on the card."""
+    from wavespec_tpu_torch.ops.detrend import _ehlers_consts
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    aj = _ehlers_consts(trend_period)[0] ** np.arange(window)
+    return torch.from_numpy(aj.astype(np_dtype)).to(device)
 
 
 def _precondition(windows: torch.Tensor, cfg: ExtractConfig, detrend_hp=None,
@@ -565,12 +577,13 @@ _EXTRACTORS = {Method.FFT_RIDGE: RidgeExtractor, Method.ESPRIT: EspritExtractor,
                Method.MUSIC: MusicExtractor, Method.AUTO: AutoExtractor}
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=64)
 def extractor(cfg: ExtractConfig, device: torch.device,
               dtype: torch.dtype = torch.float32) -> _Extractor:
     """The extractor module of `cfg`'s method on `device`, built once per
-    triple (at most 16 kept). On a CUDA device it names the kernels' size
-    limits first (`check_card_limits`)."""
+    triple (at most 64 kept: a few configs on each card of an eight-card
+    mesh). On a CUDA device it names the kernels' size limits first
+    (`check_card_limits`)."""
     if device.type == "cuda":
         check_card_limits(cfg)
     return _EXTRACTORS[cfg.method](cfg, dtype).to(device)

@@ -45,7 +45,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _table(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(twiddle_table(n)).to(device)
 

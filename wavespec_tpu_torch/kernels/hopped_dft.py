@@ -272,12 +272,12 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _twiddle_tensor(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(twiddle_table(n)).to(device)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _basis_tensor(n: int, k_bins: int, device: torch.device) -> torch.Tensor:
     """The kernel's basis E ``[128, Kp, 2]``: the twiddle table's entries
     ``(j k) mod n``, gathered once, zero from K to ``Kp`` (K rounded up to

@@ -60,7 +60,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@lru_cache(maxsize=16)
+@lru_cache(maxsize=64)
 def pairs_table(m: int, device: torch.device) -> tuple[torch.Tensor, int, int]:
     """``[rounds, half, 2]`` int32 table of `_round_robin_pairs(m)` on
     `device`, with (-1, -1) where an odd m drops the padding player's pair."""

@@ -126,7 +126,7 @@ def _tables(window: int, n_bins: int, chunk: int, window_type: int, k_lo: int = 
             if isinstance(v, tuple) else v for k, v in t.items()}
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _device_tables(window: int, n_bins: int, chunk: int, window_type: int, k_lo: int,
                    device: torch.device) -> dict:
     """`_tables` as float32 tensors on `device`, with the collapsed anchor

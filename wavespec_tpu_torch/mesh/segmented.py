@@ -5,9 +5,9 @@ A long analysis window is split into `segment_len` chunks overlapped by
 `overlap` samples; each segment gets its rFFT (cuFFT on the card, the
 n/2-bin layout of `ops.spectrum.rfft_bins`) and the segment spectra are
 mixed: ENERGY (the Welch mean of power spectra, mix 0), COHERENT (the
-mean of the complex spectra) or MAX (the per-bin largest power). The JAX
-package's `fft_segmented_sharded`, which splits the segments over a mesh
-of chips, is not ported: the port runs on one card.
+mean of the complex spectra) or MAX (the per-bin largest power).
+`fft_segmented_sharded` splits the segments over a mesh axis and
+completes the mix across the shards (the JAX package's `pmean`/`pmax`).
 """
 
 from __future__ import annotations
@@ -89,3 +89,50 @@ def solve_overlap(n: int, segment_len: int, n_chips: int, overlap: int) -> int:
             f"no overlap in [0, {segment_len - 1}] yields a segment count "
             f"divisible by {n_chips} (n={n}, segment_len={segment_len})")
     return best[1]
+
+
+def fft_segmented_sharded(series, mesh, *, axis: str = "window", segment_len: int = 16384,
+                          overlap: int = 4096, mix_mode: MixMode | int = MixMode.ENERGY,
+                          auto_tune: bool = True) -> torch.Tensor:
+    """`fft_segmented` with the segments split over the devices of the
+    mesh `axis` (a `mesh.Mesh`): each device takes a contiguous run of
+    segments, computes their rFFT and its local mix, and the partial
+    mixes are combined on the mesh's first device, where the result lies:
+    for ENERGY and COHERENT the mean of the shards' means (the JAX
+    package's `pmean`), for MAX their largest (`pmax`), summed in shard
+    order, so that a mesh gives the same bits on one card or many.
+
+    Where the segment count does not divide the axis, the overlap is
+    re-solved to the nearest one that does (`solve_overlap`, the
+    reference's `InpSegmentAutoTune`); a requested overlap that divides
+    is kept. `auto_tune=False` raises instead.
+    """
+    from wavespec_tpu_torch.mesh.mesh import on_device
+
+    mode = MixMode(mix_mode)
+    devices = mesh.axis_devices(axis)
+    n_chips = len(devices)
+    out_device = mesh.first_device
+    if not isinstance(series, torch.Tensor):
+        series = torch.as_tensor(series, device=out_device)
+    series = series.to(torch.float32)
+    nseg = num_segments(series.shape[-1], segment_len, overlap)
+    if nseg % n_chips:
+        if not auto_tune:
+            raise ValueError(f"nseg {nseg} not divisible by mesh axis {axis}={n_chips}")
+        overlap = solve_overlap(series.shape[-1], segment_len, n_chips, overlap)
+        nseg = num_segments(series.shape[-1], segment_len, overlap)
+    dft_factors(segment_len)
+    segs = split_segments(series, segment_len, overlap)
+    per = nseg // n_chips
+    parts = []
+    for i, dev in enumerate(devices):
+        block = segs[..., i * per:(i + 1) * per, :].to(dev, copy=True)
+        with on_device(dev):
+            spec = rfft_bins(block)
+            parts.append(_mix(spec, mode, dim=-2))
+    acc = parts[0].to(out_device)
+    for part in parts[1:]:
+        part = part.to(out_device)
+        acc = torch.maximum(acc, part) if mode == MixMode.MAX else acc + part
+    return acc if mode == MixMode.MAX else acc / n_chips

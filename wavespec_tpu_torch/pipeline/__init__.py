@@ -1,7 +1,6 @@
 """Pipeline layer: session, spec (preset DSL successor), drivers, the
-v7.57 analytics and their online driver (counterpart of
-`wavespec_tpu/pipeline`; the multi-device `run_v757_batch_sharded` is not
-ported)."""
+v7.57 analytics, sharded over a mesh too, and their online driver
+(counterpart of `wavespec_tpu/pipeline`)."""
 
 from wavespec_tpu_torch.pipeline.drivers import (
     BatchFetcher,
@@ -20,7 +19,8 @@ from wavespec_tpu_torch.pipeline.spec import (
     parse_preset,
     run_pipeline,
 )
-from wavespec_tpu_torch.pipeline.v757 import V757Config, run_v757, run_v757_batch
+from wavespec_tpu_torch.pipeline.v757 import (V757Config, run_v757, run_v757_batch,
+                                              run_v757_batch_sharded)
 
 __all__ = [
     "BatchFetcher",
@@ -37,6 +37,7 @@ __all__ = [
     "run_pipeline",
     "run_v757",
     "run_v757_batch",
+    "run_v757_batch_sharded",
     "V757Config",
     "V757OnlineDriver",
 ]

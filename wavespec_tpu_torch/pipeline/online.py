@@ -108,7 +108,7 @@ def _fast_tables(window: int, n_bins: int, taper: int) -> dict:
             "basis": tuple(map(f32, basis)), "a_vals": f32(a_vals), "phi": phi}
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _fast_device_tables(window: int, n_bins: int, taper: int, device: torch.device) -> dict:
     host = _fast_tables(window, n_bins, taper)
     return {k: tuple(torch.from_numpy(x).to(device) for x in v) if isinstance(v, tuple)

@@ -124,7 +124,7 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // max(x.shape[-1], 1)
 
 
-@lru_cache(maxsize=8)
+@lru_cache(maxsize=32)
 def _rank1_tables(window: int, n_bins: int, taper: int, trend_period: int,
                   device: torch.device):
     """The per-window cold start of the Ehlers filter as a rank-1 term:
@@ -135,6 +135,13 @@ def _rank1_tables(window: int, n_bins: int, taper: int, trend_period: int,
     tg = tapered_dft_of(aj, n_bins, taper)
     return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
                  for x in (aj, tg.real, tg.imag))
+
+
+@lru_cache(maxsize=32)
+def _taper(window: int, taper: int, device: torch.device) -> torch.Tensor:
+    """The taper's coefficients on `device`, copied there once: a copy from
+    pageable host memory makes the host wait on the card."""
+    return window_coefficients(window, taper, device=device)
 
 
 def _ehlers_delta(series: torch.Tensor, trend: torch.Tensor, cfg: V757Config, t: int):
@@ -176,7 +183,7 @@ def _band_spectra(series: torch.Tensor, cfg: V757Config, hop: int) -> torch.Tens
     else:   # as the JAX package's framed branch: LINEAR frames the raw series too
         windows = frame_series(series, n, hop).contiguous()
     if cfg.taper != WindowType.NONE:
-        windows.mul_(window_coefficients(n, cfg.taper, device=windows.device))
+        windows.mul_(_taper(n, int(cfg.taper), windows.device))
     return band_dft(windows, _n_bins(cfg))
 
 
@@ -217,7 +224,7 @@ def _resumable_block_spec(seg: torch.Tensor, hp_seg: torch.Tensor, trend_seg: to
     else:
         windows = _fresh(windows)
     if cfg.taper != WindowType.NONE:
-        windows.mul_(window_coefficients(n, cfg.taper, device=windows.device))
+        windows.mul_(_taper(n, int(cfg.taper), windows.device))
     return band_dft(windows, n_bins)
 
 
@@ -392,6 +399,24 @@ def run_v757_batch(series_batch, cfg: V757Config = V757Config(), hop: int = 1,
                      for lo in range(0, x.shape[0], symbol_chunk)]
             return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
         return _v757_batch(x, cfg, hop)
+
+
+def run_v757_batch_sharded(series_batch, cfg: V757Config = V757Config(), hop: int = 1, *,
+                           mesh, axis: str = "data", transfer: bool = True):
+    """`run_v757_batch` sharded over the mesh `axis` (a `mesh.Mesh`): each
+    device runs the full analytics on its run of symbols; no collective.
+    The batch must divide the axis (ValueError otherwise).
+
+    With `transfer` the result is `run_v757_batch`'s dict with every buffer
+    gathered on the mesh's first device; without it, the list of the
+    shards' dicts, each left on its device.
+    """
+    from wavespec_tpu_torch.mesh.mesh import gather, map_shards
+
+    parts = map_shards(lambda x: run_v757_batch(x, cfg, hop), series_batch, mesh, axis)
+    if not transfer:
+        return parts
+    return {k: gather([p[k] for p in parts], mesh.first_device) for k in parts[0]}
 
 
 def run_v757(series, cfg: V757Config = V757Config(), hop: int = 1,
