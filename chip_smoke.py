@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's six CUDA kernels from `wavespec_tpu_torch/csrc/`
+It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
 (one nvcc per source, all started together), then:
 
 1. prints the card, its power limit, the TF32 switches (both off) and the
@@ -54,6 +54,14 @@ It builds the port's six CUDA kernels from `wavespec_tpu_torch/csrc/`
      its copy; timed at (a), (d) and (e) beside `torch.stft`,
      `torch.fft.rfft` over the frames, the framed route (framing + B3)
      and its bound;
+   - K1 Kalman weights (`check_kalman_weights`) bitwise against its plain
+     version at `kalman_wave_model(4096, 1)`'s [1, 20000, 8] and at a
+     fleet's [128, 2048, 8], and at every layout of the kernel (k up to
+     9000), timed with its bound and its chain's latency floor;
+   - B4s, the tracker kernel's sequential mode (`check_sequential_tracker`),
+     bitwise against the plain sequential matcher on the reference-exact
+     mode's candidates at 4 symbols x 64 frames x 149 candidates, capacity
+     256, one shot and resumed, and on tie-heavy and spread streams;
 3. runs the port on the golden fixture `tests/fixtures/golden_extract.npz`
    and holds it to the recorded output;
 4. drives the two main paths, each with every launch count set to 0
@@ -95,17 +103,20 @@ It builds the port's six CUDA kernels from `wavespec_tpu_torch/csrc/`
    windows; `fast_spectral=True` against the bitwise driver, within
    bounds that two degraded fast modes exceed; ticks timed one by one
    and their device operations counted; (i) the reference-exact mode
-   (all in-band bins, the sequential matcher) card against CPU at window
-   4096, and the matcher timed;
+   (all in-band bins, the sequential matcher: B4s) at shape (c), its B4s
+   and B5 calls held bitwise against their plain versions, chunked runs
+   bitwise equal to one shot, the first 4 symbols card against CPU, the
+   call and the matcher timed;
 7. drives the six model presets of `wavespec_tpu_torch.models` and a
    segmented template job at their published widths (`model_presets`),
    each a main path of its own with the counts reset before and read
    after: `flagship` and `nodetrend_top8` at 20,000 windows (hop 1),
    `v757()` and `preproc_core` on 4,607 bars, `kalman_wave_model` at
-   20,000 frames, `wave4ea()` at window 32768 and the template job at
-   window 65536 (segments of 16384, auto overlap 4096); checks outputs and
-   planted periods, holds every B1-B5 call of one run of each against its
-   plain version (B1, B2, B4, B5 bitwise, B3 within 1e-4 a window), times
+   20,000 frames (B3 and K1), `wave4ea()` at window 32768 and the template
+   job at window 65536 (segments of 16384, auto overlap 4096); checks
+   outputs and planted periods, holds every B1-B5 and K1 call of one run
+   of each against its plain version (B1, B2, B4, B5, K1 bitwise, B3
+   within 1e-4 a window), times
    each call with its launches, device operations, busy share and peak
    memory, and holds each preset at window 1024 card against CPU;
 8. drives the host surface (`host_surface`), each path a main path of its
@@ -151,7 +162,8 @@ It builds the port's six CUDA kernels from `wavespec_tpu_torch/csrc/`
    (o)-(q) run again on distinct cards, bitwise against a virtual mesh of
    as many entries; with one card a line says so;
 10. prints one JSON line with every kernel's record (launches summed over
-   every main path), then, last, ``{"ok": true, "device": {...}}``.
+   every main path; B4's two modes, `tracker` and `tracker_sequential`,
+   each with its own count), then, last, ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no
 CPU path: without a CUDA device the script exits with an error.
@@ -1114,6 +1126,194 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     return rec
 
 
+# Dependent-chain latency floors of K1 and B4s, counted from their sources
+# and their SASS at the usual Hopper latencies (FP32 add, multiply,
+# compare and select 4 cycles, an IEEE float32 division ~50: MUFU.RCP,
+# five dependent FFMA and the range check; a shuffle and its add ~27, a
+# redux.sync ~30, a ballot and its select ~6). K1's frame is its p chain:
+# p + q, (h h) p, its select, the innovation's tree, + r, the gate, the
+# division, the gain's select, gain h, 1 - x, x p, the floor: ~95 cycles
+# at one lane a series and one element a lane, 27 more a shuffle level
+# (log2 of the lanes a series) and 50 more each further element a lane
+# (its division waits for the one before). A B4s candidate step over the
+# slots in use is a row's cost (~30; the rows run side by side), the
+# lane's least (~8), a redux, the least uid (~12), a redux, a ballot a
+# slot and the update (~10): ~150 cycles at the 2 slots (64 rows) the
+# reference-exact mode keeps. The floor is the frames (candidate steps)
+# of one series times these, at the card's largest SM clock.
+K1_STEP_CYCLES, K1_SHUFFLE_CYCLES, K1_ELEMENT_CYCLES, B4S_STEP_CYCLES = 95, 27, 50, 150
+
+
+def sm_clock_hz() -> float:
+    """The card's largest SM clock, as `nvidia-smi` reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds between two CUDA events): for the plain
+    versions whose one call takes seconds."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def check_kalman_weights(dev, tag) -> dict:
+    """K1 against its plain version on the card at its main path's shape,
+    `kalman_wave_model(4096, 1)`'s basis and closes on 24,095 bars
+    ([1, 20000, 8]), and at a fleet's, shape (c)'s `bench_series` at 128
+    symbols x 2048 frames ([128, 2048, 8]): bitwise on the blend and the
+    final weights; then every layout of the kernel (k = 1, 3, 16, 40, 207
+    and 256 in registers; 300, 1100 and 9000 a warp a series with the
+    state in global memory) on random inputs, bitwise. Timed: kernel (median of 5 runs of 5 calls) and plain version
+    (one call) at both shapes. Returns the record at the preset's shape."""
+    import importlib
+
+    from wavespec_tpu_torch.filters.kalman_weights import (KalmanWeightsConfig,
+                                                           kalman_weights_filter_plain)
+    from wavespec_tpu_torch.kernels import kalman_weights as kk
+
+    kw = importlib.import_module("wavespec_tpu_torch.filters.kalman_wave")
+    cfg = KalmanWeightsConfig()
+    wcfg = kw.KalmanWaveConfig(window=WINDOW, top_k=8, min_period=18.0, max_period=200.0)
+    clock = sm_clock_hz()
+
+    def held(basis, z, label):
+        got = kk.kalman_weights_kernel(basis, z, cfg)
+        ref, plain_ms = timed_once(lambda: kalman_weights_filter_plain(basis, z, cfg))
+        bad = [name for name, g, r in zip(("blend", "weights"), got, ref)
+               if not (torch.equal(g, r) and torch.isfinite(g).all())]
+        if bad:
+            raise AssertionError(f"K1 kalman_weights {label}: {bad} differ from plain")
+        return got, plain_ms
+
+    rec = None
+    for label, x in (("preset", planted_series(WINDOW + 19999, SEED + 20)[None]),
+                     ("fleet", bench_series(128, 2048))):
+        xs = torch.from_numpy(x).to(dev)
+        basis = kw.kalman_wave(xs, wcfg)[2].contiguous()
+        z = xs[:, WINDOW - 1:].contiguous()
+        (out, w), plain_ms = held(basis, z, label)
+        b, t, k = basis.shape
+        ms = cuda_ms(lambda: kk.kalman_weights_kernel(basis, z, cfg), per_run=5)
+        plan = kk.launch_plan(k, b)
+        # the function's operations: ~16 an element a frame (the products,
+        # the division, the update, the three sums' adds)
+        bnd = bound(nbytes(basis, z, out, w), 16 * b * t * k)
+        cycles = (K1_STEP_CYCLES + K1_SHUFFLE_CYCLES * (plan.lanes.bit_length() - 1)
+                  + K1_ELEMENT_CYCLES * (plan.elements - 1))
+        floor_ms = t * cycles / clock * 1e3
+        log(f"K1 kalman_weights {label} {tuple(basis.shape)} (lanes a series {plan.lanes}, "
+            f"elements a lane {plan.elements}, series a block {plan.series}, frames a stage "
+            f"{plan.frames}): bitwise equal to plain on the blend and the final "
+            f"weights; kernel {ms:.4f} ms ({1e6 * ms / t:.1f} ns a frame), plain {plain_ms:.1f} ms "
+            f"(one call), bound {bnd[0]:.5f} ms ({bnd[1]}), chain latency floor {floor_ms:.4f} ms "
+            f"({t} dependent frames at {clock / 1e9:.3f} GHz); no PyTorch call computes it {tag}")
+        if rec is None:
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd)
+        del xs, basis, z
+    rng = np.random.default_rng(SEED)
+    for k, b, t in ((1, 3, 300), (3, 33, 300), (16, 5, 300), (40, 5, 300), (207, 3, 300),
+                    (256, 2, 200), (300, 2, 100), (1100, 2, 50), (9000, 2, 20)):
+        h = (0.5 * rng.standard_normal((b, t, k))).astype(np.float32)
+        z = (h.sum(-1) + 0.1 * rng.standard_normal((b, t)) + 50.0).astype(np.float32)
+        held(torch.from_numpy(h).to(dev), torch.from_numpy(z).to(dev), f"k={k}")
+        plan = kk.launch_plan(k, b)
+        where = "registers" if plan.lanes else "global memory"
+        log(f"K1 kalman_weights [{b}, {t}, {k}]: bitwise equal to plain (state in {where}, "
+            f"lanes a series {plan.lanes or 32})")
+    return rec
+
+
+def check_sequential_tracker(dev, tag) -> dict:
+    """B4s, the tracker kernel's sequential mode, against `track_frames_plain`
+    with `sequential_match=True` on the card: at the reference-exact mode's
+    candidates (every in-band bin, J = 149 at window 4096) of 4 symbols x 64
+    frames of `bench_series`, capacity 256, bitwise in every output and the
+    final state, one shot and resumed from a split inside a stage of
+    frames; then on tie-heavy and spread streams at (J, C, S) = (7, 16, 1),
+    (41, 65, 33), (149, 256, 12), likewise, and at J = 9000 (candidates read
+    from global memory) against the plain version on the CPU (the same
+    function, a loop of 18,000 candidate steps). Timed: kernel (median of
+    5 runs of 5 calls), plain version (one call). Returns the record."""
+    from wavespec_tpu_torch import V757Config
+    from wavespec_tpu_torch.analyze.trackers import (TrackerConfig, TrackerState,
+                                                     track_frames_plain)
+    from wavespec_tpu_torch.kernels import tracker as kt
+    from wavespec_tpu_torch.pipeline import v757 as pv
+    from wavespec_tpu_torch.testing import tracker_stream
+
+    def held(cand, tcfg, label, plain_on=None):
+        out, state = kt.track_frames_kernel(*cand, tcfg)
+        cut = max(1, cand[0].shape[-2] // 2 - 5)
+        head = kt.track_frames_kernel(*(c[:, :cut].contiguous() for c in cand), tcfg)
+        tail = kt.track_frames_kernel(*(c[:, cut:].contiguous() for c in cand), tcfg,
+                                      init=head[1])
+        if plain_on is None:
+            (out_p, state_p), plain_ms = timed_once(lambda: track_frames_plain(*cand, tcfg))
+        else:
+            out_p, state_p = track_frames_plain(*(c.to(plain_on) for c in cand), tcfg)
+            out_p = {k: v.to(dev) for k, v in out_p.items()}
+            state_p, plain_ms = TrackerState(*(v.to(dev) for v in state_p)), None
+        torch.cuda.synchronize()
+        bad = [k for k in out_p if not (torch.equal(out[k], out_p[k]) and torch.equal(
+            torch.cat([head[0][k], tail[0][k]], 1), out[k]))]
+        bad += [f for f in TrackerState._fields
+                if not (torch.equal(getattr(state, f), getattr(state_p, f))
+                        and torch.equal(getattr(tail[1], f), getattr(state, f)))]
+        if bad:
+            raise AssertionError(f"B4s tracker_sequential {label}: {bad} differ")
+        log(f"B4s tracker_sequential {label} {tuple(cand[0].shape)}, C={tcfg.capacity} "
+            f"S={tcfg.n_slots}: bitwise equal to plain{' (on the CPU)' if plain_on else ''} on "
+            f"the 11 outputs and the final state, resumed at frame {cut} equal to one shot "
+            f"({int((state_p.uid > 0).sum(-1).max())} rows in use at most, "
+            f"{int(out_p['slot_valid'].sum())} valid slot frames)")
+        return out, state, plain_ms
+
+    exact = V757Config(n_candidates=0, sliding_spectral=True,
+                       tracker=TrackerConfig(capacity=256, sequential_match=True))
+    x4 = torch.from_numpy(bench_series(4, 64)).to(dev)
+    cand = [c.contiguous() for c in pv._spectral_frames(x4, exact, 1)[:4]]
+    out, state, plain_ms = held(cand, exact.tracker, "reference-exact candidates")
+    b, t, j = cand[0].shape
+    c, s = exact.tracker.capacity, exact.tracker.n_slots
+    ms = cuda_ms(lambda: kt.track_frames_kernel(*cand, exact.tracker), per_run=5)
+    # the work this run's data needs: a candidate's cost (~10 operations)
+    # on each row alive at its frame's start, and the slot fill and leak
+    # scan (~15 a slot) over the same rows; the rows a frame's own
+    # candidates open are left out (a lower count). The rows alive come
+    # from the kernel run a frame at a time, resumed, as held above.
+    alive, fstate = 0, None
+    for f in range(t):
+        if fstate is not None:
+            alive += int(fstate.alive.sum())
+        fstate = kt.track_frames_kernel(*(x[:, f:f + 1].contiguous() for x in cand),
+                                        exact.tracker, init=fstate)[1]
+    ops = alive * (10 * j + 15 * s)
+    bnd = bound(nbytes(*cand, *out.values(), *state), ops)
+    floor_ms = t * j * B4S_STEP_CYCLES / sm_clock_hz() * 1e3
+    log(f"B4s tracker_sequential {tuple(cand[0].shape)}, capacity {c}: kernel {ms:.4f} ms "
+        f"({1e6 * ms / (t * j):.1f} ns a candidate step), plain {plain_ms:.1f} ms (one call), "
+        f"bound {bnd[0]:.5f} ms ({bnd[1]}; {alive} row frames alive of {b * t * c}), chain "
+        f"latency floor {floor_ms:.4f} ms ({t * j} dependent candidate steps); no PyTorch "
+        f"call computes it {tag}")
+    for jj, cc, ss, kind in ((7, 16, 1, "ties"), (41, 65, 33, "spread"), (149, 256, 12, "spread")):
+        stream = [torch.from_numpy(a).to(dev) for a in
+                  tracker_stream(40, jj, SEED + jj + cc, (4,), ties=kind == "ties",
+                                 spread=kind == "spread")]
+        held(stream, TrackerConfig(capacity=cc, n_slots=ss, sequential_match=True),
+             f"{kind} stream")
+    wide = [torch.from_numpy(a).to(dev) for a in tracker_stream(2, 9000, SEED + 9, (1,), spread=True)]
+    held(wide, TrackerConfig(capacity=64, sequential_match=True), "J = 9000 (global memory)",
+         plain_on="cpu")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd)
+
+
 def device_ops(fn, calls: int) -> float:
     """Device operations (kernels, copies, fills) a call of `fn()`, counted
     by `torch.profiler` over `calls` calls."""
@@ -1170,29 +1370,34 @@ def feed(drv, bars: np.ndarray, chunks, timed_from: int, profiled=range(0), chec
 
 
 class KernelCalls:
-    """Within `with`, wraps every site where a path looks up B1-B5 and H1
-    and, while `on`, records each call's (name, args, kwargs, result): the
-    kernel modules' own wrappers (looked up at call time by
+    """Within `with`, wraps every site where a path looks up B1-B5, H1 and
+    K1 and, while `on`, records each call's (name, args, kwargs, result):
+    the kernel modules' own wrappers (looked up at call time by
     `analyze.jacobi.jacobi_eigh`, `analyze.music.music_candidates`,
     `ops.spectrum.framed_spectrum`, B3's own split of long windows and, for
-    H1, `extract`'s ridge and MUSIC routes) and
-    those `pipeline.v757` imported (`band_dft`, `track_frames`, which takes
-    B4 on the card for the vectorized matcher, and `v757_tail`). Nothing is
+    H1, `extract`'s ridge and MUSIC routes), those `pipeline.v757`
+    imported (`band_dft`, `track_frames`, which takes B4 on the card in the
+    config's matcher, and `v757_tail`) and the one `filters.kalman_wave`
+    imported (`kalman_weights_filter`, which takes K1 on the card). Nothing is
     copied: no path writes a tensor after handing it to a kernel or
     receiving it from one. Launch counts are kept on the wrapped
     functions (`_Recording.launches`), so a path counted while recorded
     counts as it would unrecorded."""
 
     def __init__(self):
+        import importlib
+
         from wavespec_tpu_torch.kernels import band_dft as kb
         from wavespec_tpu_torch.kernels import hopped_dft as kh
         from wavespec_tpu_torch.kernels import jacobi as kj
         from wavespec_tpu_torch.kernels import music_select as ks
         from wavespec_tpu_torch.pipeline import v757 as pv
 
+        kw = importlib.import_module("wavespec_tpu_torch.filters.kalman_wave")
         self.sites = ((kj, "jacobi_eigh_unsorted"), (ks, "select_candidates"),
                       (kb, "band_dft"), (pv, "band_dft"), (pv, "track_frames"),
-                      (pv, "v757_tail"), (kh, "rfft_band_hopped"))
+                      (pv, "v757_tail"), (kh, "rfft_band_hopped"),
+                      (kw, "kalman_weights_filter"))
         self.on, self.calls = False, []
 
     def __enter__(self):
@@ -1622,28 +1827,58 @@ def reference_exact(dev, tag, counters, reset_counts) -> dict:
 
     launches = {}
     path_launches = _path_launches(launches, counters, reset_counts)
-    xc_host = bench_series(4, 64)
+    x_host = bench_series(V757_SYMBOLS, V757_FRAMES)
     exact = V757Config(n_candidates=0, sliding_spectral=True,
                        tracker=TrackerConfig(capacity=256, sequential_match=True))
-    x4 = xc_host
-    t0 = time.perf_counter()
-    card_x = path_launches("reference-exact (i)",
-                           lambda: run_v757_batch(torch.from_numpy(x4).to(dev), exact),
-                           ("v757_tail",))
-    call_s = time.perf_counter() - t0
-    cpu_x = {k: v.numpy() for k, v in run_v757_batch(x4, exact, device="cpu").items()}
-    bad, _ = v757_readings({k: v.cpu().numpy() for k, v in card_x.items()}, cpu_x)
-    cand = pv._spectral_frames(torch.from_numpy(x4).to(dev), exact, 1)[:4]
-    t0 = time.perf_counter()
-    track_frames(*cand, exact.tracker)
-    torch.cuda.synchronize()
-    match_s = time.perf_counter() - t0
-    j = cand[0].shape[-1]
-    log(f"(i) reference-exact mode (all {j} in-band bins, sequential matcher, capacity 256) on "
-        f"4 symbols x 64 frames, window {WINDOW}: card agrees with the CPU run of the port "
-        f"(discrete fields exact): {not bad} {bad}; run_v757_batch {call_s:.2f} s, the "
-        f"matcher alone {match_s:.2f} s ({1e6 * match_s / (64 * j):.1f} us a candidate step, "
-        f"one Python loop of plain PyTorch) {tag}")
+    x = torch.from_numpy(x_host).to(dev)
+    run_v757_batch(x, exact)          # warm-up: tables, plans
+    card_x, calls = recorded(path_launches, "reference-exact (i)",
+                             lambda: run_v757_batch(x, exact), ("tracker_sequential", "v757_tail"))
+    shape = f"{V757_SYMBOLS} symbols x {V757_FRAMES} frames"
+    for k, v in card_x.items():
+        if v.shape[:2] != (V757_SYMBOLS, V757_FRAMES) or (
+                v.is_floating_point() and not torch.isfinite(v).all()):
+            raise AssertionError(f"(i) reference-exact mode: {k} {tuple(v.shape)} malformed")
+    count = check_preset_calls(calls, f"(i) reference-exact mode at {shape}")
+    if count.get("track_frames") != 1:
+        raise AssertionError(f"(i): the matcher ran {count.get('track_frames')} times a call")
+    del calls
+    ms = cuda_ms(lambda: run_v757_batch(x, exact), warmup=0)
+    spectral = pv._spectral_frames(x, exact, 1)
+    cand = spectral[:4]
+    match_ms = cuda_ms(lambda: track_frames(*cand, exact.tracker), per_run=5)
+    # chunked: the matcher and the tail (B4s, B5) over three runs of frames
+    # of one spectral stage, each resumed from the last one's states. The
+    # spectral stage is not run in chunks: the sliding route's unpinned
+    # anchors are not bitwise across series lengths on the card (PERF.md
+    # section 6, PR 13)
+    t, j = cand[0].shape[-2:]
+    newest, price_prev = pv._frame_prices(x, exact, 1, t)
+    one = pv._slots_and_tail(spectral, newest, price_prev, exact, 1, return_state=True)
+    bounds, parts, ts, tl = (0, t // 5 + 1, 3 * t // 5, t), [], None, None
+    for lo, hi in zip(bounds, bounds[1:]):
+        out, ts, tl = pv._slots_and_tail(
+            tuple(c[:, lo:hi].contiguous() for c in spectral), newest[:, lo:hi].contiguous(),
+            price_prev, exact, 1, tracker_init=ts, tail_init=tl, return_state=True)
+        parts.append(out)
+    bad = [k for k in one[0] if not torch.equal(torch.cat([p[k] for p in parts], 1), one[0][k])]
+    bad += [f for f, a, b in zip(ts._fields, ts, one[1]) if not torch.equal(a, b)]
+    bad += [f"tail state {i}" for i, (a, b) in enumerate(zip(tl, one[2])) if not torch.equal(a, b)]
+    del one, parts
+    if bad:
+        raise AssertionError(f"(i) reference-exact mode: the matcher and tail resumed differ "
+                             f"from one shot in {bad}")
+    n_cpu = 4
+    cpu_x = {k: v.numpy() for k, v in run_v757_batch(x_host[:n_cpu], exact, device="cpu").items()}
+    bad, _ = v757_readings({k: v[:n_cpu].cpu().numpy() for k, v in card_x.items()}, cpu_x)
+    log(f"(i) reference-exact mode (all {j} in-band bins, sequential matcher B4s, capacity "
+        f"256) at {shape}, window {WINDOW}: outputs finite and of their shapes; the matcher "
+        f"and tail resumed over frames {list(bounds)} bitwise equal to one shot (every output "
+        f"and both states); the first {n_cpu} "
+        f"symbols agree with the CPU run of the port (discrete fields exact): {not bad} "
+        f"{bad}; run_v757_batch {ms:.3f} ms a call, "
+        f"the matcher alone {match_ms:.4f} ms ({1e6 * match_ms / (t * j):.1f} ns a candidate "
+        f"step; median of 5 runs) {tag}")
     if bad:
         raise AssertionError(f"(i) reference-exact mode, card vs CPU: {bad}")
     return launches
@@ -1688,9 +1923,13 @@ def live_v757(dev, tag, counters, reset_counts) -> dict:
     one (CUDA events and host clock, each synchronised), and their device
     operations counted over 8.
     (i) the reference-exact mode (every in-band bin a candidate, the
-    sequential matcher) on 4 symbols x 64 frames at window 4096, card
-    against CPU, discrete fields exact, floats within `testing`'s v7.57
-    limits, and the matcher timed alone."""
+    sequential matcher, B4s on the card) at shape (c), 128 symbols x 512
+    frames at window 4096: the call's B4s and B5 calls held bitwise against
+    their plain versions on the same inputs, the matcher and tail resumed
+    over three runs of frames of one spectral stage bitwise equal to one
+    shot, the first 4 symbols
+    against the CPU (discrete fields exact, floats within `testing`'s
+    v7.57 limits); the call and the matcher alone timed."""
     launches = sliding_route(dev, tag, counters, reset_counts)
     fleet_launches = online_fleet(dev, tag, counters, reset_counts)[0]
     return {"launches": {**launches, **fleet_launches,
@@ -1702,18 +1941,20 @@ PRESET_TEXT_W1024 = ("time: dc(mode=0); extract: window=1024, top_k=6, method=mu
 
 
 def check_preset_calls(calls: KernelCalls, label: str) -> dict:
-    """Every recorded B1-B5 and H1 call of one run (a preset's, or a
+    """Every recorded B1-B5, H1 and K1 call of one run (a preset's, or a
     host-surface path's; `label` prefixes the log line) against its plain
-    version on the same inputs: B1, B2, B4 and B5 bitwise (every output
-    and the final states), B3 per window within 1e-4 of its largest bin
-    (a call on windows past `MAX_N`, which recombines the kernel's
-    sub-window calls, against a float64 DFT of the same windows, every bin
-    it returns; its sub-window calls against the plain version as any
-    other), H1 within 1e-6 of the call's largest bin.
+    version on the same inputs: B1, B2, B4 (either matcher), B5 and K1
+    bitwise (every output and the final states), B3 per window within
+    1e-4 of its largest bin (a call on windows past `MAX_N`, which
+    recombines the kernel's sub-window calls, against a float64 DFT of
+    the same windows, every bin it returns; its sub-window calls against
+    the plain version as any other), H1 within 1e-6 of the call's largest
+    bin.
     Returns the calls counted by kernel."""
     from wavespec_tpu_torch.analyze.jacobi import jacobi_eigh_plain
     from wavespec_tpu_torch.analyze.music import select_candidates_plain
     from wavespec_tpu_torch.analyze.trackers import TrackerState, track_frames_plain
+    from wavespec_tpu_torch.filters.kalman_weights import kalman_weights_filter_plain
     from wavespec_tpu_torch.kernels.band_dft import MAX_N
     from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped_plain
     from wavespec_tpu_torch.ops import spectrum as ps
@@ -1756,6 +1997,9 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
             got, ref = dict(enumerate(out)), dict(enumerate(jacobi_eigh_plain(*args, **kw)))
         elif name == "select_candidates":
             got, ref = out, select_candidates_plain(*args, **kw)
+        elif name == "kalman_weights_filter":
+            got = dict(zip(("blend", "weights"), out))
+            ref = dict(zip(("blend", "weights"), kalman_weights_filter_plain(*args, **kw)))
         elif name == "track_frames":
             (got, state), (ref, ref_state) = out, track_frames_plain(*args, **kw)
             got = {**got, **{f"state.{f}": getattr(state, f) for f in TrackerState._fields}}
@@ -1888,7 +2132,7 @@ def model_presets(dev, tag, counters, reset_counts) -> dict:
       `planted_series` (cycles of 50 and 120 bars on a random walk),
       seeds 20-23.
     Each call's outputs are checked (shapes, finite values, the planted
-    periods); every B1-B5 call of one run is held against its plain
+    periods); every B1-B5 and K1 call of one run is held against its plain
     version on the same inputs (`check_preset_calls`); the call is timed
     (CUDA events, median of 5 after warm-up) with its kernel launches,
     device operations and busy share (one call traced by `torch.profiler`:
@@ -1910,7 +2154,8 @@ def model_presets(dev, tag, counters, reset_counts) -> dict:
         ("nodetrend_top8", models.nodetrend_top8(WINDOW, 1), long_x, ("band_dft",)),
         ("v757", models.v757(), short_x, ("band_dft", "tracker", "v757_tail")),
         ("preproc_core", models.preproc_core(WINDOW), short_x, ("band_dft",)),
-        ("kalman_wave_model", models.kalman_wave_model(WINDOW, 1), long_x, ("band_dft",)),
+        ("kalman_wave_model", models.kalman_wave_model(WINDOW, 1), long_x,
+         ("band_dft", "kalman_weights")),
         ("wave4ea", models.wave4ea(), planted_series(40000, SEED + 22),
          ("jacobi_eigh", "music_select", "band_dft")),
         ("template", models.wave4ea(template), planted_series(70000, SEED + 23),
@@ -3127,6 +3372,7 @@ def main() -> None:
     from wavespec_tpu_torch.kernels import band_dft as kb
     from wavespec_tpu_torch.kernels import hopped_dft as kh
     from wavespec_tpu_torch.kernels import jacobi as kj
+    from wavespec_tpu_torch.kernels import kalman_weights as kkw
     from wavespec_tpu_torch.kernels import music_select as ks
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as ktail
@@ -3139,7 +3385,9 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     counters = {"jacobi_eigh": kj.jacobi_eigh_unsorted, "music_select": ks.select_candidates,
                 "band_dft": kb.band_dft, "tracker": kt.track_frames_kernel,
-                "v757_tail": ktail.v757_tail, "hopped_dft": kh.rfft_band_hopped}
+                "v757_tail": ktail.v757_tail, "hopped_dft": kh.rfft_band_hopped,
+                "kalman_weights": kkw.kalman_weights_kernel,
+                "tracker_sequential": kt.sequential_mode}
 
     def reset_counts():
         for fn in counters.values():
@@ -3170,7 +3418,8 @@ def main() -> None:
 
     t_build = time.perf_counter()
     libs = {"jacobi_eigh": kj._lib, "music_select": ks._lib, "band_dft": kb._lib,
-            "tracker": kt._lib, "v757_tail": ktail._lib, "hopped_dft": kh._lib}
+            "tracker": kt._lib, "v757_tail": ktail._lib, "hopped_dft": kh._lib,
+            "kalman_weights": kkw._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         build_s = dict(zip(libs, pool.map(build, libs.values())))
     log(f"kernels built in parallel and loaded from wavespec_tpu_torch/csrc/ in "
@@ -3388,6 +3637,8 @@ def main() -> None:
                                          max_abs_err=max_abs["music_select"])}
     kernel_times.update(check_v757_kernels(xc, vcfg, dev, tag))
     kernel_times["hopped_dft"] = check_hopped_dft(dev, tag)
+    kernel_times["kalman_weights"] = check_kalman_weights(dev, tag)
+    kernel_times["tracker_sequential"] = check_sequential_tracker(dev, tag)
     # ---- 3. golden fixture ----
     data = np.load(ROOT / "tests" / "fixtures" / "golden_extract.npz")
     gcfg = ExtractConfig(window=1024, top_k=2, min_period=10.0, max_period=200.0,
@@ -3552,7 +3803,7 @@ def main() -> None:
                  *presets["launches"].values(), *host["launches"].values(),
                  *mesh["launches"].values()):
         for k, n in path.items():
-            launches[k] += n
+            launches[k] = launches.get(k, 0) + n
 
     # ---- 10. the kernel records ----
     sources = {
@@ -3562,12 +3813,15 @@ def main() -> None:
         "tracker": "wavespec_tpu/kernels/tracker_pallas.py:449",
         "v757_tail": "wavespec_tpu/kernels/v757_tail_pallas.py:609",
         "hopped_dft": "wavespec_tpu/kernels/hopped_dft.py:126",
+        "kalman_weights": "wavespec_tpu/filters/kalman_weights.py:57",
+        "tracker_sequential": "wavespec_tpu/analyze/trackers.py:133",
     }
     records = []
     for name, replaces in sources.items():
         r = kernel_times[name]
+        src = "tracker" if name == "tracker_sequential" else name
         records.append({
-            "name": name, "route": "cuda", "source": f"wavespec_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda", "source": f"wavespec_tpu_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})

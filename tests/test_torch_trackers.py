@@ -149,21 +149,33 @@ def test_sequential_match_differs_from_the_vectorized_one():
     assert not all(torch.equal(seq[k], vec[k]) for k in seq)
 
 
-def test_the_kernel_refuses_the_sequential_matcher_on_the_card():
-    """B4 implements the vectorized matcher only: its wrapper refuses a
-    sequential config for a CUDA tensor (checked before any launch, so a
-    tensor that claims to be on CUDA is enough); on the CPU it takes the
-    plain version, as `track_frames` does."""
+def test_the_kernel_takes_the_sequential_matcher():
+    """B4 runs both matchers, the sequential one as its mode B4s: on the
+    CPU its wrapper takes the plain version and launches nothing (neither
+    mode's count moves); its launch plan takes a sequential config as it
+    takes the vectorized one; and `pipeline.v757.check_card_limits` names
+    the capacity limit for both matchers before any work."""
+    from wavespec_tpu_torch.kernels.tracker import MAX_CAPACITY, launch_plan, sequential_mode
+    from wavespec_tpu_torch.pipeline.v757 import V757Config, check_card_limits
+
     frames = [torch.from_numpy(f) for f in candidate_stream(5, 4, 1)]
     cfg = ptr.TrackerConfig(capacity=16, sequential_match=True)
-    out, _ = track_frames_kernel(*frames, cfg)
-    assert torch.equal(out["slot_uid"], ptr.track_frames(*frames, cfg)[0]["slot_uid"])
+    want = ptr.track_frames_plain(*frames, cfg)
+    before = (track_frames_kernel.launches, sequential_mode.launches)
+    for got in (track_frames_kernel(*frames, cfg), ptr.track_frames(*frames, cfg)):
+        assert_same(*got, {k: v.numpy() for k, v in want[0].items()},
+                    {f: getattr(want[1], f).numpy() for f in ptr.TrackerState._fields})
+    assert (track_frames_kernel.launches, sequential_mode.launches) == before
 
-    class OnCard:
-        is_cuda = True
-
-    with pytest.raises(ValueError, match="vectorized matcher only"):
-        track_frames_kernel(OnCard(), *frames[1:], cfg)
+    for j, c, s in ((149, 256, 12), (24, 64, 12), (9000, 65, 33)):
+        assert launch_plan(j, c, s, sequential=True) == launch_plan(j, c, s)
+    for seq in (False, True):
+        tcfg = ptr.TrackerConfig(capacity=MAX_CAPACITY, sequential_match=seq)
+        check_card_limits(V757Config(n_candidates=0, tracker=tcfg))
+        matcher = "sequential" if seq else "vectorized"
+        with pytest.raises(ValueError, match=f"capacity {MAX_CAPACITY + 1}.*{matcher} matcher"):
+            check_card_limits(V757Config(tracker=dataclasses.replace(
+                tcfg, capacity=MAX_CAPACITY + 1)))
 
 
 @pytest.mark.parametrize("period", [128, 1024])

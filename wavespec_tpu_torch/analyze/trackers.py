@@ -14,7 +14,8 @@ flags its strongest transient leak.
 The state is a fixed-capacity struct of arrays with any leading batch
 dims. `track_frames_plain` runs `tracker_step` in a loop over frames; it
 is the plain version of kernel B4 (`kernels/tracker.py`), which
-`track_frames` launches for a CUDA tensor.
+`track_frames` launches for a CUDA tensor with either matcher (the
+sequential one as B4's mode B4s).
 """
 
 from __future__ import annotations
@@ -287,16 +288,11 @@ def track_frames(cand_periods, cand_powers, cand_fft_idx, cand_valid,
     powers float32, fft indices int32, valid bool); returns (dict of
     ``[..., T, S]`` slot outputs, final `TrackerState`). `init` resumes
     from a prior call's final state: chunked runs equal the one-shot run
-    bitwise. Kernel B4 for CUDA tensors, `track_frames_plain` on the CPU;
-    the reference-exact matcher (`sequential_match`) is a loop of plain
-    PyTorch over each frame's candidates on every device, as the JAX
-    package keeps its XLA scan for it (B4 implements the vectorized
-    matcher only).
+    bitwise. Kernel B4 for CUDA tensors, in its sequential mode B4s for
+    the reference-exact matcher (`sequential_match`);
+    `track_frames_plain` on the CPU.
     """
     from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
 
-    if cfg.sequential_match:
-        return track_frames_plain(cand_periods, cand_powers, cand_fft_idx, cand_valid,
-                                  cfg, init)
     return track_frames_kernel(cand_periods, cand_powers, cand_fft_idx,
                                cand_valid, cfg, init)

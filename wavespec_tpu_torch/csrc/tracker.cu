@@ -1,13 +1,28 @@
-// The v7.57 tracker / stable-slot / leak state machine over T frames,
-// vectorized matcher, for a batch of symbols.
+// The v7.57 tracker / stable-slot / leak state machine over T frames, for
+// a batch of symbols, with either matcher: vectorized (kernel B4), or the
+// reference-exact sequential one (its mode kSeq, B4s).
 //
 // Replaces: wavespec_tpu/kernels/tracker_pallas.py::track_frames_pallas
 // (Pallas `_kernel` / `_advance`), which is bitwise equal to the XLA scan
-// wavespec_tpu/analyze/trackers.py::track_frames. This kernel is held
-// bitwise equal to its plain PyTorch version,
-// wavespec_tpu_torch/analyze/trackers.py::track_frames_plain, on all 11
-// per-frame outputs and the final state, and resumes from `init` as the
-// Pallas kernel does.
+// wavespec_tpu/analyze/trackers.py::track_frames; in mode kSeq, the XLA
+// scan over candidates inside the scan over frames,
+// wavespec_tpu/analyze/trackers.py::_sequential_match_update (no Pallas
+// kernel). This kernel is held bitwise equal to its plain PyTorch version,
+// wavespec_tpu_torch/analyze/trackers.py::track_frames_plain (with
+// `sequential_match` in mode kSeq), on all 11 per-frame outputs and the
+// final state, and resumes from `init` as the Pallas kernel does.
+//
+// Mode kSeq replaces only the matching and the row allocation: the
+// frame's candidates j = 0..J-1 in order, each on the rows as the earlier
+// candidates left them (`analyze/trackers.py::_sequential_match_update`
+// step for step): the eligible rows' costs (match_cost_fast, match_cost
+// where that is not sure), the warp's least cost by one redux.sync, the
+// least uid among the rows of that cost by a second, and the first row
+// holding it (or, unmatched, the first dead row) by a ballot in row order;
+// the lane that owns the row updates it at once. Its chain is J such
+// steps a frame (149 at the reference-exact mode's window 4096), each two
+// warp reductions and NR ballots long; deactivation, slots and leaks are
+// the vectorized mode's.
 //
 // What bounds it: each frame reads 4 * J candidate words and writes
 // 11 * S words per symbol, a few hundred bytes, and does a few thousand
@@ -220,10 +235,131 @@ template <> struct SlotMask<2> { using T = unsigned long long; };
 __device__ __forceinline__ int first_bit(unsigned m) { return __ffs(m) - 1; }
 __device__ __forceinline__ int first_bit(unsigned long long m) { return __ffsll(m) - 1; }
 
+// ---- the sequential matcher (mode kSeq) ----
+
+// A frame's candidates (staged or in global memory) and the constants of
+// its steps.
+struct SeqFrame {
+  const float* cp;
+  const float* cw;
+  const int32_t* cf;
+  const uint8_t* cv;
+  int J, C, lane;
+  bool fast;
+  float tol;
+};
+
+// The next candidate, read a step ahead.
+struct SeqCand {
+  float p, pw;
+  int fi;
+  bool valid;
+};
+
+// A lane's rows lane + 32 i, i < NR, by reference to the kernel's arrays.
+template <int NR> struct Rows {
+  float (&per)[NR];
+  float (&pw)[NR];
+  int (&fi)[NR];
+  int (&bi)[NR];
+  int (&uid)[NR];
+  bool (&al)[NR];
+  bool (&seen)[NR];
+  const bool (&ex)[NR];
+};
+
+// The candidate steps from candidate j on over the first U slots of rows
+// (rows lane + 32 i, i < U), where every alive row lies, so that every
+// row past them is dead and the first of those, row 32 U, is the first
+// dead row where the U slots hold none. Each step is the plain version's
+// (`analyze/trackers.py::_sequential_match_update`): the eligible rows'
+// costs (match_cost_fast; match_cost where that is not sure), the warp's
+// least by one redux.sync, the least uid among the rows of that cost by a
+// second (the plain version's first argmin over uid, kImax where not
+// tied), the first row holding it or, unmatched, the first dead row, by
+// ballots in row order; the lane that owns the row updates it at once.
+// The step is branch-free but for that division. Returns the next
+// candidate: J, or, where a candidate took row 32 U, the one after it,
+// with nu = U + 1.
+template <int NR, int U>
+__device__ __forceinline__ int seq_run(const SeqFrame& fr, int j, SeqCand& nx, Rows<NR>& r,
+                                       int& next_uid, int& nu) {
+  constexpr int UP = U < NR ? U + 1 : NR;   // the slots a step may touch
+  for (; j < fr.J; ++j) {
+    const SeqCand c = nx;
+    const int jn = j + 1 < fr.J ? j + 1 : j;
+    nx = SeqCand{fr.cp[jn], fr.cw[jn], fr.cf[jn], fr.cv[jn] != 0};
+    if (!(c.valid & (c.p > 0.f))) continue;   // the same in every lane: nothing changes
+    const bool p_fast = fr.fast & in_range(c.p);
+    unsigned cb[U];
+    bool uns[U];
+    bool any_uns = false;
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const bool el = r.ex[i] & r.al[i] & (r.bi[i] == 0);
+      bool u = !(p_fast & in_range(r.per[i]));
+      const float cost = match_cost_fast(c.p, r.per[i], fr.tol, u);
+      uns[i] = el & u;
+      any_uns |= uns[i];
+      cb[i] = __float_as_uint(el ? cost : kBig);   // costs >= 0: their bits order as they do
+    }
+    if (any_uns) {
+#pragma unroll
+      for (int i = 0; i < U; ++i) {
+        if (uns[i]) cb[i] = __float_as_uint(match_cost(c.p, r.per[i], fr.tol));
+      }
+    }
+    unsigned lmin = cb[0];
+#pragma unroll
+    for (int i = 1; i < U; ++i) lmin = min(lmin, cb[i]);
+    const unsigned least = __reduce_min_sync(kFull, lmin);
+    const bool matched = __uint_as_float(least) < kBig;
+    int val[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) val[i] = cb[i] == least ? r.uid[i] : kImax;
+    int lu = val[0];
+#pragma unroll
+    for (int i = 1; i < U; ++i) lu = min(lu, val[i]);
+    const int least_uid = matched ? __reduce_min_sync(kFull, lu) : 0;
+    unsigned row_m = 0;
+    int row_i = -1;
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const bool take = matched ? (val[i] == least_uid) : !r.al[i];
+      const unsigned m = __ballot_sync(kFull, r.ex[i] & take);
+      row_i = (row_m == 0) & (m != 0) ? i : row_i;
+      row_m = row_m == 0 ? m : row_m;
+    }
+    if ((row_m == 0) & (!matched | (least_uid == kImax)) & (U < NR) & (32 * U < fr.C)) {
+      row_i = U;   // row 32 U, in lane 0
+      row_m = 1u;
+    }
+    const bool owner = fr.lane == __ffs(row_m) - 1;   // none where row_m is 0
+    const bool made = (row_m != 0) & !matched;
+#pragma unroll
+    for (int i = 0; i < UP; ++i) {
+      const bool mine = owner & (i == row_i);
+      r.per[i] = mine ? c.p : r.per[i];
+      r.pw[i] = mine ? c.pw : r.pw[i];
+      r.fi[i] = mine ? c.fi : r.fi[i];
+      r.seen[i] |= mine;
+      r.bi[i] = mine ? 0 : r.bi[i];
+      r.uid[i] = mine & made ? next_uid : r.uid[i];
+      r.al[i] |= mine & made;
+    }
+    next_uid += made ? 1 : 0;
+    if (row_i == U) {
+      nu = U + 1;
+      return j + 1;
+    }
+  }
+  return fr.J;
+}
+
 // NR capacity rows a lane (row lane + 32 i), NS slots a lane (slot
 // lane + 32 u); kStaged: frames through the shared-memory ring, or read
 // from global memory where one frame's candidates do not fit in it.
-template <int NR, int NS, bool kStaged>
+template <int NR, int NS, bool kStaged, bool kSeq>
 __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool has_init,
                                                      Outputs out, State fin, Params prm) {
   constexpr int kRows = 32 * NR, kSlots = 32 * NS;
@@ -340,110 +476,138 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
       const int32_t* cf = c_fft + fj;
       const uint8_t* cv = c_valid + fj;
 
-      // ---- eligible rows, in row order ----
-      bool el[NR];
-      int n_elig = 0;
-      bool rows_ok = true;
+      if constexpr (kSeq) {
+        // ---- the reference-exact matcher: the candidates in order, each
+        // on the rows as the frame's earlier candidates left them, over
+        // the first nu slots of rows (every alive row lies there) ----
+        int nu = 1;
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        el[i] = ex[i] & al[i] & (bi[i] == 0);
-        const unsigned em = __ballot_sync(kFull, el[i]);
-        if (el[i]) {
-          const int k = n_elig + __popc(em & lt);
-          e_row[k] = rr[i];
-          e_per[k] = per[i];
+        for (int i = 0; i < NR; ++i) {
+          seen[i] = false;
+          nu = __any_sync(kFull, al[i]) ? i + 1 : nu;
         }
-        n_elig += __popc(em);
-        rows_ok &= !el[i] | in_range(per[i]);
-      }
-      if (lane < 4) e_per[n_elig + lane] = 0.f;   // costs kBig
-      const bool rows_fast = fast & (__all_sync(kFull, rows_ok) != 0);
-      __syncwarp();
+        SeqCand nx{cp[0], cw[0], cf[0], cv[0] != 0};
+        Rows<NR> rows{per, pw, fi, bi, uid, al, seen, ex};
+        const SeqFrame fr{cp, cw, cf, cv, J, C, lane, fast, prm.tol};
+        int j = 0;
+        while (j < J) {   // nu grows where a candidate takes the first row past them
+          switch (nu) {
+            case 1: j = seq_run<NR, 1>(fr, j, nx, rows, next_uid, nu); break;
+            case 2: j = seq_run<NR, 2>(fr, j, nx, rows, next_uid, nu); break;
+            case 3: if constexpr (NR >= 4) j = seq_run<NR, 3>(fr, j, nx, rows, next_uid, nu); break;
+            case 4: if constexpr (NR >= 4) j = seq_run<NR, 4>(fr, j, nx, rows, next_uid, nu); break;
+            case 5: if constexpr (NR >= 8) j = seq_run<NR, 5>(fr, j, nx, rows, next_uid, nu); break;
+            case 6: if constexpr (NR >= 8) j = seq_run<NR, 6>(fr, j, nx, rows, next_uid, nu); break;
+            case 7: if constexpr (NR >= 8) j = seq_run<NR, 7>(fr, j, nx, rows, next_uid, nu); break;
+            default: if constexpr (NR >= 8) j = seq_run<NR, 8>(fr, j, nx, rows, next_uid, nu); break;
+          }
+        }
+      } else {
+        // ---- eligible rows, in row order ----
+        bool el[NR];
+        int n_elig = 0;
+        bool rows_ok = true;
+  #pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          el[i] = ex[i] & al[i] & (bi[i] == 0);
+          const unsigned em = __ballot_sync(kFull, el[i]);
+          if (el[i]) {
+            const int k = n_elig + __popc(em & lt);
+            e_row[k] = rr[i];
+            e_per[k] = per[i];
+          }
+          n_elig += __popc(em);
+          rows_ok &= !el[i] | in_range(per[i]);
+        }
+        if (lane < 4) e_per[n_elig + lane] = 0.f;   // costs kBig
+        const bool rows_fast = fast & (__all_sync(kFull, rows_ok) != 0);
+        __syncwarp();
 
-      // ---- each candidate: the first eligible row of least cost; each
-      // row: the least (cost, j) of the candidates that chose it ----
-      int n_unm = 0;
-      for (int base = 0; base < J; base += 32) {
-        const int j = base + lane;
-        float bc = kBig;
-        int bk = -1;
-        bool p_ok = false;
-        if (j < J) {
-          const float p = cp[j];
-          p_ok = (cv[j] != 0) & (p > 0.f);
-          if (p_ok) {
-            bool unsure = !(rows_fast & in_range(p));
-            if (!unsure) {
-              // rows 4m, 4m + 2 and 4m + 1, 4m + 3 in two running
-              // minima, then the less (cost, row) of the two
-              float bc2 = kBig;
-              int bk2 = -1;
-              const float4* e4 = reinterpret_cast<const float4*>(e_per);
-#pragma unroll 2
-              for (int k = 0; k < n_elig; k += 4) {
-                const float4 e = e4[k >> 2];
-                const float c0 = match_cost_fast(p, e.x, prm.tol, unsure);
-                const float c1 = match_cost_fast(p, e.y, prm.tol, unsure);
-                const float c2 = match_cost_fast(p, e.z, prm.tol, unsure);
-                const float c3 = match_cost_fast(p, e.w, prm.tol, unsure);
-                bk = c0 < bc ? k : bk;
-                bc = fminf(c0, bc);
-                bk2 = c1 < bc2 ? k + 1 : bk2;
-                bc2 = fminf(c1, bc2);
-                bk = c2 < bc ? k + 2 : bk;
-                bc = fminf(c2, bc);
-                bk2 = c3 < bc2 ? k + 3 : bk2;
-                bc2 = fminf(c3, bc2);
+        // ---- each candidate: the first eligible row of least cost; each
+        // row: the least (cost, j) of the candidates that chose it ----
+        int n_unm = 0;
+        for (int base = 0; base < J; base += 32) {
+          const int j = base + lane;
+          float bc = kBig;
+          int bk = -1;
+          bool p_ok = false;
+          if (j < J) {
+            const float p = cp[j];
+            p_ok = (cv[j] != 0) & (p > 0.f);
+            if (p_ok) {
+              bool unsure = !(rows_fast & in_range(p));
+              if (!unsure) {
+                // rows 4m, 4m + 2 and 4m + 1, 4m + 3 in two running
+                // minima, then the less (cost, row) of the two
+                float bc2 = kBig;
+                int bk2 = -1;
+                const float4* e4 = reinterpret_cast<const float4*>(e_per);
+  #pragma unroll 2
+                for (int k = 0; k < n_elig; k += 4) {
+                  const float4 e = e4[k >> 2];
+                  const float c0 = match_cost_fast(p, e.x, prm.tol, unsure);
+                  const float c1 = match_cost_fast(p, e.y, prm.tol, unsure);
+                  const float c2 = match_cost_fast(p, e.z, prm.tol, unsure);
+                  const float c3 = match_cost_fast(p, e.w, prm.tol, unsure);
+                  bk = c0 < bc ? k : bk;
+                  bc = fminf(c0, bc);
+                  bk2 = c1 < bc2 ? k + 1 : bk2;
+                  bc2 = fminf(c1, bc2);
+                  bk = c2 < bc ? k + 2 : bk;
+                  bc = fminf(c2, bc);
+                  bk2 = c3 < bc2 ? k + 3 : bk2;
+                  bc2 = fminf(c3, bc2);
+                }
+                if ((bc2 < bc) | ((bc2 == bc) & (bk2 < bk))) { bc = bc2; bk = bk2; }
               }
-              if ((bc2 < bc) | ((bc2 == bc) & (bk2 < bk))) { bc = bc2; bk = bk2; }
-            }
-            if (unsure) {
-              bc = kBig;
-              bk = -1;
-              for (int k = 0; k < n_elig; ++k) {
-                const float c = match_cost(p, e_per[k], prm.tol);
-                bk = c < bc ? k : bk;
-                bc = fminf(c, bc);
+              if (unsure) {
+                bc = kBig;
+                bk = -1;
+                for (int k = 0; k < n_elig; ++k) {
+                  const float c = match_cost(p, e_per[k], prm.tol);
+                  bk = c < bc ? k : bk;
+                  bc = fminf(c, bc);
+                }
               }
             }
           }
+          const bool matched = bc < kBig;
+          if (matched) {
+            atomicMin(&r_win[e_row[bk]],
+                      (static_cast<unsigned long long>(__float_as_uint(bc)) << 32) | unsigned(j));
+          }
+          const bool unm = p_ok & !matched;
+          const unsigned um = __ballot_sync(kFull, unm);
+          const int pos = n_unm + __popc(um & lt);
+          if (unm & (pos < kRows)) u_j[pos] = j;
+          n_unm += __popc(um);
         }
-        const bool matched = bc < kBig;
-        if (matched) {
-          atomicMin(&r_win[e_row[bk]],
-                    (static_cast<unsigned long long>(__float_as_uint(bc)) << 32) | unsigned(j));
+        __syncwarp();
+  #pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const unsigned long long w = r_win[rr[i]];
+          r_win[rr[i]] = ~0ull;
+          const int wj = w == ~0ull ? -1 : static_cast<int>(w & 0xffffffffu);
+          seen[i] = wj >= 0;
+          if (seen[i]) { per[i] = cp[wj]; pw[i] = cw[wj]; fi[i] = cf[wj]; }
         }
-        const bool unm = p_ok & !matched;
-        const unsigned um = __ballot_sync(kFull, unm);
-        const int pos = n_unm + __popc(um & lt);
-        if (unm & (pos < kRows)) u_j[pos] = j;
-        n_unm += __popc(um);
-      }
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        const unsigned long long w = r_win[rr[i]];
-        r_win[rr[i]] = ~0ull;
-        const int wj = w == ~0ull ? -1 : static_cast<int>(w & 0xffffffffu);
-        seen[i] = wj >= 0;
-        if (seen[i]) { per[i] = cp[wj]; pw[i] = cw[wj]; fi[i] = cf[wj]; }
-      }
 
-      // ---- the nth unmatched candidate takes the nth dead row ----
-      int n_dead = 0;
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        const bool dead = ex[i] & !al[i];
-        const unsigned dm = __ballot_sync(kFull, dead);
-        const int rank = n_dead + __popc(dm & lt);
-        if (dead & (rank < n_unm)) {
-          const int jj = u_j[rank];
-          per[i] = cp[jj]; pw[i] = cw[jj]; fi[i] = cf[jj];
-          uid[i] = next_uid + rank; seen[i] = true; al[i] = true;
+        // ---- the nth unmatched candidate takes the nth dead row ----
+        int n_dead = 0;
+  #pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const bool dead = ex[i] & !al[i];
+          const unsigned dm = __ballot_sync(kFull, dead);
+          const int rank = n_dead + __popc(dm & lt);
+          if (dead & (rank < n_unm)) {
+            const int jj = u_j[rank];
+            per[i] = cp[jj]; pw[i] = cw[jj]; fi[i] = cf[jj];
+            uid[i] = next_uid + rank; seen[i] = true; al[i] = true;
+          }
+          n_dead += __popc(dm);
         }
-        n_dead += __popc(dm);
+        next_uid += min(n_dead, n_unm);
       }
-      next_uid += min(n_dead, n_unm);
 
       // ---- deactivate unseen; kill after max_inactive ----
 #pragma unroll
@@ -629,10 +793,10 @@ State state_from(void* const* p) {
                static_cast<int32_t*>(p[10]), static_cast<int32_t*>(p[11])};
 }
 
-template <int NR, int NS, bool kStaged>
+template <int NR, int NS, bool kStaged, bool kSeq>
 int launch(const Inputs& ins, const State& st0, bool has_init, const Outputs& o,
            const State& fin, const Params& prm, int B, size_t smem, cudaStream_t stream) {
-  auto kernel = tracker_kernel<NR, NS, kStaged>;
+  auto kernel = tracker_kernel<NR, NS, kStaged, kSeq>;
   // the dynamic size, with the static arrays, may pass the default 48 KB
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -642,11 +806,15 @@ int launch(const Inputs& ins, const State& st0, bool has_init, const Outputs& o,
 }
 
 template <int NR, int NS>
-int launch_staged(bool staged, const Inputs& ins, const State& st0, bool has_init,
-                  const Outputs& o, const State& fin, const Params& prm, int B,
-                  size_t smem, cudaStream_t stream) {
-  return staged ? launch<NR, NS, true>(ins, st0, has_init, o, fin, prm, B, smem, stream)
-                : launch<NR, NS, false>(ins, st0, has_init, o, fin, prm, B, 0, stream);
+int launch_mode(bool staged, bool seq, const Inputs& ins, const State& st0, bool has_init,
+                const Outputs& o, const State& fin, const Params& prm, int B,
+                size_t smem, cudaStream_t stream) {
+  if (seq) {
+    return staged ? launch<NR, NS, true, true>(ins, st0, has_init, o, fin, prm, B, smem, stream)
+                  : launch<NR, NS, false, true>(ins, st0, has_init, o, fin, prm, B, 0, stream);
+  }
+  return staged ? launch<NR, NS, true, false>(ins, st0, has_init, o, fin, prm, B, smem, stream)
+                : launch<NR, NS, false, false>(ins, st0, has_init, o, fin, prm, B, 0, stream);
 }
 
 }  // namespace
@@ -668,10 +836,12 @@ extern "C" void tracker_plan(int J, int C, int S, int smem_optin, int* nr, int* 
 // in: 4 pointers (period, power, fft, valid). init: 12 pointers in
 // TrackerState order (seen_now unused), or null for a fresh start.
 // out: 11 pointers in the order of Outputs. fin: 12 pointers in
-// TrackerState order. Returns a cudaError_t code: a shared-memory size
-// the card cannot give, or a refused launch, is returned, never skipped.
+// TrackerState order. `sequential`: the reference-exact matcher (kSeq),
+// else the vectorized one. Returns a cudaError_t code: a shared-memory
+// size the card cannot give, or a refused launch, is returned, never
+// skipped.
 extern "C" int tracker_launch(void* const* in, void* const* init,
-                              void* const* out, void* const* fin, int B,
+                              void* const* out, void* const* fin, int sequential, int B,
                               int T, int J, int C, int S, float tol,
                               int max_inactive, float leak_pr, float leak_wr,
                               int leak_min, int leak_max, void* stream) {
@@ -696,15 +866,15 @@ extern "C" int tracker_launch(void* const* in, void* const* init,
   Params prm{T, J, C, S, frames_per_stage(J), tol, leak_pr, leak_wr,
              max_inactive, leak_min, leak_max};
   const State fn = state_from(fin);
-  const bool hi = init != nullptr;
+  const bool hi = init != nullptr, sq = sequential != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
   switch (nr * 10 + ns) {
-    case 21: return launch_staged<2, 1>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 22: return launch_staged<2, 2>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 41: return launch_staged<4, 1>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 42: return launch_staged<4, 2>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 81: return launch_staged<8, 1>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
-    default: return launch_staged<8, 2>(staged, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 21: return launch_mode<2, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 22: return launch_mode<2, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 41: return launch_mode<4, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 42: return launch_mode<4, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 81: return launch_mode<8, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
+    default: return launch_mode<8, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
   }
 }

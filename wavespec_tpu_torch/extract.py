@@ -48,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from wavespec_tpu_torch.ops.arith import tree_sum
 from wavespec_tpu_torch.ops.windows import WindowType
 
 STRIDE = 15
@@ -196,17 +197,6 @@ def _wrap_pi(theta: torch.Tensor) -> torch.Tensor:
     return theta - 2.0 * math.pi * torch.round(theta / (2.0 * math.pi))
 
 
-def _stable_row_sum(a: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis by a fixed pairwise halving tree."""
-    nb = a.shape[-1]
-    size = 1 << max(nb - 1, 0).bit_length()
-    x = torch.nn.functional.pad(a, (0, size - nb))
-    while size > 1:
-        size //= 2
-        x = x[..., :size] + x[..., size:]
-    return x[..., 0]
-
-
 def _attrs_from_peaks(freq, amp, phase_end, power, valid, total_inband,
                       noise_floor, coherence, eigen_ratio, method_id: int,
                       cfg: ExtractConfig) -> torch.Tensor:
@@ -224,7 +214,7 @@ def _attrs_from_peaks(freq, amp, phase_end, power, valid, total_inband,
     total = torch.clamp(total_inband[..., None], min=eps)
     energy_ratio = torch.clamp(power / total, 0.0, 1.0)
     residual = torch.clamp(
-        1.0 - _stable_row_sum(torch.where(valid, power, 0.0)) / total[..., 0],
+        1.0 - tree_sum(torch.where(valid, power, 0.0)) / total[..., 0],
         0.0, 1.0,
     )[..., None] * torch.ones_like(power)
 
@@ -343,12 +333,12 @@ def _ridge_attrs_from_spec(spec: torch.Tensor, cfg: ExtractConfig) -> torch.Tens
     re, im = spec.real, spec.imag
     power = re ** 2 + im ** 2
     band_p = power[..., k_min: k_max + 1]
-    total_inband = _stable_row_sum(band_p)
+    total_inband = tree_sum(band_p)
     n_band = float(k_max - k_min + 1)
 
     peak_p, band_idx = topk_stable(band_p, cfg.top_k)
     valid = peak_p > 0
-    picked = _stable_row_sum(peak_p)
+    picked = tree_sum(peak_p)
     denom = max(n_band - cfg.top_k, 1.0)
     noise_floor = sdiv(torch.clamp(total_inband - picked, min=0.0), denom)
     freq = sdiv((band_idx + k_min).to(power.dtype), float(n))

@@ -3,7 +3,7 @@
 
   per frame: trend high-pass -> taper -> band spectrum -> power ->
   candidates -> group delay -> trackers, stable slots and leaks (kernel
-  B4, or the reference-exact sequential matcher) -> biquad
+  B4, or its sequential mode B4s, the reference-exact matcher) -> biquad
   reconstruction, ETA and color, FollowFirst, Kalman 4D (kernel B5) ->
   leak ETA.
 
@@ -349,13 +349,12 @@ def _v757_batch(series: torch.Tensor, cfg: V757Config, hop: int) -> dict:
 
 
 def check_card_limits(cfg: V757Config) -> None:
-    """Raise ValueError, naming the limit, where kernel B4 (vectorized
-    matcher only) or B5 cannot take `cfg` on the card."""
+    """Raise ValueError, naming the limit, where kernel B4 (either
+    matcher) or B5 cannot take `cfg` on the card."""
     from wavespec_tpu_torch.kernels.tracker import check_config
     from wavespec_tpu_torch.kernels.v757_tail import slots_per_lane
 
-    if not cfg.tracker.sequential_match:
-        check_config(cfg.tracker)
+    check_config(cfg.tracker)
     slots_per_lane(cfg.tracker.n_slots)
 
 
