@@ -61,7 +61,10 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    - B4s, the tracker kernel's sequential mode (`check_sequential_tracker`),
      bitwise against the plain sequential matcher on the reference-exact
      mode's candidates at 4 symbols x 64 frames x 149 candidates, capacity
-     256, one shot and resumed, and on tie-heavy and spread streams;
+     256, one shot and resumed, on tie-heavy and spread streams, and past
+     the register geometry (capacity 1024 at window 16384's 595
+     candidates, capacity 3000 in global scratch), timed with its bound
+     and its chain's floor (`b4s_chain`);
 3. runs the port on the golden fixture `tests/fixtures/golden_extract.npz`
    and holds it to the recorded output;
 4. drives the two main paths, each with every launch count set to 0
@@ -106,7 +109,9 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    (all in-band bins, the sequential matcher: B4s) at shape (c), its B4s
    and B5 calls held bitwise against their plain versions, chunked runs
    bitwise equal to one shot, the first 4 symbols card against CPU, the
-   call and the matcher timed;
+   call and the matcher timed; (i16k) the same mode at the indicator's
+   default window 16384 (595 candidates a frame), capacity 1024, likewise,
+   and the frames its outputs change on at capacity 256;
 7. drives the six model presets of `wavespec_tpu_torch.models` and a
    segmented template job at their published widths (`model_presets`),
    each a main path of its own with the counts reset before and read
@@ -355,8 +360,13 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
     and 64, B2 at top_k 8 with 16 grid points a bin (lists of 81 maxima,
     past the kernel's 64: rounds rescan their band), B4 at (J, C, S) =
     (24, 65, 12), (24, 128, 33), (2458, 64, 12) and (9000, 64, 12) (too
-    many candidates for shared memory: read from global memory), B5 at 33
-    and 64 slots; B4 and B5 also resumed from a split."""
+    many candidates for shared memory: read from global memory), and past
+    the register geometry at (24, 1024, 12), (24, 256, 100) (regions in
+    shared memory), (41, 3000, 12) (in global scratch) and (9000, 1024,
+    12) (the region in shared memory, the candidates read from global
+    memory), B5 at 33 and 64
+    slots and past them at 100 (shared memory) and 2000 (global scratch);
+    B4 and B5 also resumed from a split. Then `check_plans`."""
     from wavespec_tpu_torch.analyze.jacobi import jacobi_eigh_plain
     from wavespec_tpu_torch.analyze.music import (
         band_precondition_windows, music_pseudospectrum, select_candidates_plain)
@@ -368,7 +378,7 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as kv
     from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_bins
-    from wavespec_tpu_torch.pipeline.tail import V757TailState, v757_tail_plain
+    from wavespec_tpu_torch.pipeline.tail import V757TailState, ring_capacity, v757_tail_plain
     from wavespec_tpu_torch.pipeline.v757 import V757Config
     from wavespec_tpu_torch.testing import selection_edge_rows, tail_stream, tracker_stream
 
@@ -438,10 +448,11 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
         if bad:
             raise AssertionError(f"C1 B4 tracker J={j} C={c} S={s}: {bad} differ")
         ms = cuda_ms(lambda: kt.track_frames_kernel(*cand, tcfg), per_run=5)
-        nr, ns, frames, _ = kt.launch_plan(j, c, s)
+        plan = kt.launch_plan(j, c, s)
         rows_used = int((state_p.uid > 0).sum(-1).max())
-        log(f"C1 B4 tracker {batch} symbols x {t} frames, J={j} C={c} S={s} ({nr} rows and "
-            f"{ns} slots a lane, {frames or 'global-memory'} frames a stage; "
+        log(f"C1 B4 tracker {batch} symbols x {t} frames, J={j} C={c} S={s} ({plan.rows} rows "
+            f"and {plan.slots} slots a lane in {plan.memory}, {plan.frames or 'global-memory'} "
+            f"frames a stage; "
             f"{'spread' if spread else 'tie-heavy' if ties else 'jittered'} stream, up to "
             f"{rows_used} rows in use, {int(out_p['slot_valid'][..., 32:].sum())} valid slot "
             f"frames past slot 32): bitwise equal to plain, resumed at frame {cut} equal to "
@@ -453,11 +464,19 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
         b4(24, 128, 33, 150, 16, not ties, ties)
     b4(2458, 64, 12, 20, 16, True)
     b4(9000, 64, 12, 8, 4, True)
+    # past the register geometry: capacity 1024 at (c)'s J (the region in
+    # shared memory), 100 slots, and a capacity whose region passes it
+    b4(24, 1024, 12, 150, 16, True)
+    b4(24, 256, 100, 150, 16, True)
+    b4(41, 3000, 12, 40, 4, True)
+    b4(9000, 1024, 12, 8, 4, True)   # the region in shared memory, no room for the ring
 
     # ---- B5 ----
     vcfg = V757Config()
-    for s in (32, 33, 64):
-        args = [torch.from_numpy(a).to(dev) for a in tail_stream(100, s, SEED + s, (16,))]
+    # 32, 33, 64 slots in registers; 100 in the wide geometry's region in
+    # shared memory, 2000 in global scratch
+    for s, n_sym in ((32, 16), (33, 16), (64, 16), (100, 16), (2000, 4)):
+        args = [torch.from_numpy(a).to(dev) for a in tail_stream(100, s, SEED + s, (n_sym,))]
         got, got_state = kv.v757_tail(*args, vcfg, 1, return_state=True)
         ref, ref_state = v757_tail_plain(*args, vcfg, 1, return_state=True)
         part = [a[:, :45].contiguous() if a.dim() == 3 or a.shape[-1] == 100 else a for a in args]
@@ -473,10 +492,66 @@ def check_c1_sizes(dev, tag, x, hop) -> None:
         if bad:
             raise AssertionError(f"C1 B5 v757_tail {s} slots: resumed {bad} differ")
         ms = cuda_ms(lambda: kv.v757_tail(*args, vcfg, 1), per_run=5)
-        log(f"C1 B5 v757_tail 16 symbols x 100 frames, {s} slots ({kv.slots_per_lane(s)} a "
-            f"lane): within 1e-6 relative of plain (largest |diff| {worst:.3e}), color, "
+        plan = kv.tail_plan(s, ring_capacity(vcfg))
+        log(f"C1 B5 v757_tail {n_sym} symbols x 100 frames, {s} slots ({plan.slots} a lane in "
+            f"{plan.memory}): within 1e-6 relative of plain (largest |diff| {worst:.3e}), color, "
             f"states, sig, confluence exact, resumed at frame 45 equal to one shot "
             f"({int((ref['sig'] != 0).sum())} signals); {ms:.4f} ms {tag}")
+    check_plans(dev)
+
+
+def check_plans(dev) -> None:
+    """The wrappers' geometries, which the CPU tests check
+    (`kernels.tracker.launch_plan`, `kernels.v757_tail.tail_plan`, at the
+    H100's 227 KB of shared memory a block), equal in every field to the
+    built libraries' own (`tracker_plan`, `v757_tail_plan`) over sizes
+    on both sides of every threshold; and the global scratch the
+    libraries ask of the wrappers on this card (`tracker_scratch_bytes`,
+    `v757_tail_scratch_bytes`) equal to those plans' regions where they
+    lie in global memory, else 0."""
+    import ctypes
+
+    from wavespec_tpu_torch.kernels import tracker as kt
+    from wavespec_tpu_torch.kernels import v757_tail as kv
+
+    optin = 227 * 1024
+    names = ("registers", "shared", "global")
+    with torch.cuda.device(dev):
+        lt, lv = kt._lib(), kv._lib()
+    i4 = [ctypes.c_int() for _ in range(4)]
+    q2 = [ctypes.c_longlong() for _ in range(2)]
+    refs = [ctypes.byref(v) for v in i4 + q2]
+    n = 0
+    for j in (1, 24, 149, 595, 2458, 9000):
+        for c in (1, 64, 65, 128, 129, 256, 257, 1024, 2900, 3000, 5000):
+            for s in (1, 32, 33, 64, 65, 100, 2000):
+                want = kt.launch_plan(j, c, s)
+                lt.tracker_plan(j, c, s, optin, refs[0], refs[1], refs[2], refs[4], refs[3],
+                                refs[5])
+                got = (i4[0].value, i4[1].value, names[i4[2].value], q2[0].value, q2[1].value,
+                       bool(i4[3].value))
+                if got != (want.rows, want.slots, want.memory, want.region, want.smem,
+                           want.frames > 0):
+                    raise AssertionError(f"tracker plan at J={j} C={c} S={s}: library {got}, "
+                                         f"wrapper {want}")
+                scratch = lt.tracker_scratch_bytes(j, c, s)
+                if scratch != (want.region if want.memory == "global" else 0):
+                    raise AssertionError(f"tracker scratch at J={j} C={c} S={s}: {scratch}")
+                n += 1
+    for s in (1, 32, 33, 64, 65, 100, 700, 2000):
+        for cap in (2, 16, 64, 200):
+            want = kv.tail_plan(s, cap)
+            lv.v757_tail_plan(s, cap, optin, refs[0], refs[1], refs[2], refs[4], refs[5])
+            got = (i4[0].value, i4[1].value, names[i4[2].value], q2[0].value, q2[1].value)
+            if got != (want.slots, want.frames, want.memory, want.region, want.smem):
+                raise AssertionError(f"tail plan at S={s} cap={cap}: library {got}, "
+                                     f"wrapper {want}")
+            scratch = lv.v757_tail_scratch_bytes(s, cap)
+            if scratch != (want.region if want.memory == "global" else 0):
+                raise AssertionError(f"tail scratch at S={s} cap={cap}: {scratch}")
+            n += 1
+    log(f"C1 plans: the wrappers' tracker and tail geometries equal the libraries' own at "
+        f"{n} sizes, and the scratch the libraries ask on this card equals their regions")
 
 
 def jacobi_bound(a: torch.Tensor) -> tuple[float, str]:
@@ -1135,13 +1210,24 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
 # division, the gain's select, gain h, 1 - x, x p, the floor: ~95 cycles
 # at one lane a series and one element a lane, 27 more a shuffle level
 # (log2 of the lanes a series) and 50 more each further element a lane
-# (its division waits for the one before). A B4s candidate step over the
-# slots in use is a row's cost (~30; the rows run side by side), the
-# lane's least (~8), a redux, the least uid (~12), a redux, a ballot a
-# slot and the update (~10): ~150 cycles at the 2 slots (64 rows) the
-# reference-exact mode keeps. The floor is the frames (candidate steps)
-# of one series times these, at the card's largest SM clock.
-K1_STEP_CYCLES, K1_SHUFFLE_CYCLES, K1_ELEMENT_CYCLES, B4S_STEP_CYCLES = 95, 27, 50, 150
+# (its division waits for the one before). K1's floor is the frames of
+# one series times these, at the card's largest SM clock.
+K1_STEP_CYCLES, K1_SHUFFLE_CYCLES, K1_ELEMENT_CYCLES = 95, 27, 50
+# B4s, `csrc/tracker.cu` mode kSeq. In the register geometry (`seq_run`)
+# a candidate step over the slots in use is a row's cost (~30; the
+# rows run side by side), the lane's least (~8), a redux, the least uid
+# (~12), a redux, a ballot a slot and the update (~10): ~150 cycles at
+# the 2 slots (64 rows) the reference-exact mode keeps. In the memory
+# geometry (`seq_run_mem`) a step is a row's cost (~30; the slots' loads
+# and costs run side by side), the lane's running least (cost, uid) a
+# slot in use (a compare, an equality, their join and three selects, each
+# slot after the one before: ~8 cycles a slot), a redux, the least uid's
+# select (~4), a redux, a ballot and its select (~6) and the owner's
+# update (~10): ~110 cycles and 8 a slot in use. Slots, leaks and the
+# frame's start are left out. The floor is the largest over symbols of
+# these summed over the frames, with the slots in use at each frame's
+# start, at the card's largest SM clock.
+B4S_STEP_CYCLES, B4S_MEM_STEP_CYCLES, B4S_SLOT_CYCLES = 150, 110, 8
 
 
 def sm_clock_hz() -> float:
@@ -1215,7 +1301,8 @@ def check_kalman_weights(dev, tag) -> dict:
             f"(one call), bound {bnd[0]:.5f} ms ({bnd[1]}), chain latency floor {floor_ms:.4f} ms "
             f"({t} dependent frames at {clock / 1e9:.3f} GHz); no PyTorch call computes it {tag}")
         if rec is None:
-            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd)
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd,
+                       floor_ms=floor_ms)
         del xs, basis, z
     rng = np.random.default_rng(SEED)
     for k, b, t in ((1, 3, 300), (3, 33, 300), (16, 5, 300), (40, 5, 300), (207, 3, 300),
@@ -1230,6 +1317,56 @@ def check_kalman_weights(dev, tag) -> dict:
     return rec
 
 
+def geometric_stream(t: int, j: int, seed: int):
+    """Tracker candidates ``[2, t, j]`` (periods, powers, fft indices,
+    valid) whose j periods, 5 x 1.12^k in a shuffled order with 1% jitter,
+    lie beyond each other's tolerance: every candidate keeps a row of its
+    own, so a frame touches about j rows."""
+    rng = np.random.default_rng(seed)
+    base = 5.0 * 1.12 ** np.arange(j)
+    per = np.stack([[rng.permutation(base) * (1 + 0.01 * rng.standard_normal(j))
+                     for _ in range(t)] for _ in range(2)]).astype(np.float32)
+    valid = rng.random(per.shape) > 0.05
+    per = np.where(valid, per, 0.0).astype(np.float32)
+    pw = (rng.gamma(2.0, 2.0, size=per.shape) * valid).astype(np.float32)
+    return per, pw, (4096 / np.maximum(per, 1.0)).astype(np.int32), valid
+
+
+def b4s_chain(cand, tcfg) -> dict:
+    """B4s's chain on the inputs `cand` (``[B, T, J]`` on the card): the
+    kernel run a frame at a time, resumed, gives each frame's starting
+    rows. Returns the row frames alive at the frames' starts (`alive`, the
+    work the bound counts), the rows alive at most (`alive_max`), the rows
+    a frame touches (`seen_now`: mean and largest) and the chain's floor
+    in cycles (`cycles`, the largest over symbols): `B4S_STEP_CYCLES` a
+    valid candidate in the register geometry; in the memory geometry
+    `B4S_MEM_STEP_CYCLES` and `B4S_SLOT_CYCLES` a slot of 32 rows in use
+    (up to the last alive row) at the frame's start."""
+    from wavespec_tpu_torch.kernels import tracker as kt
+
+    b, t, j = cand[0].shape
+    mem = kt.launch_plan(j, tcfg.capacity, tcfg.n_slots, sequential=True).memory != "registers"
+    cycles = torch.zeros(b, dtype=torch.float64, device=cand[0].device)
+    rows = torch.arange(tcfg.capacity, device=cand[0].device)
+    alive, alive_max, touched, state = 0, 0, [], None
+    for f in range(t):
+        frame = [x[:, f:f + 1].contiguous() for x in cand]
+        ok = frame[3][:, 0] & (frame[0][:, 0] > 0)
+        step = torch.full_like(cycles, B4S_MEM_STEP_CYCLES if mem else B4S_STEP_CYCLES)
+        if state is not None:
+            alive += int(state.alive.sum())
+            if mem:
+                last = torch.where(state.alive, rows, -1).amax(-1)
+                step += B4S_SLOT_CYCLES * torch.div(last + 32, 32, rounding_mode="floor")
+        cycles += ok.sum(-1) * step
+        state = kt.track_frames_kernel(*frame, tcfg, init=state)[1]
+        alive_max = max(alive_max, int(state.alive.sum(-1).max()))
+        touched.append(state.seen_now.sum(-1))
+    touched = torch.stack(touched, -1).float()
+    return dict(alive=alive, alive_max=alive_max, touched_mean=float(touched.mean()),
+                touched_max=int(touched.max()), cycles=float(cycles.max()))
+
+
 def check_sequential_tracker(dev, tag) -> dict:
     """B4s, the tracker kernel's sequential mode, against `track_frames_plain`
     with `sequential_match=True` on the card: at the reference-exact mode's
@@ -1237,10 +1374,18 @@ def check_sequential_tracker(dev, tag) -> dict:
     frames of `bench_series`, capacity 256, bitwise in every output and the
     final state, one shot and resumed from a split inside a stage of
     frames; then on tie-heavy and spread streams at (J, C, S) = (7, 16, 1),
-    (41, 65, 33), (149, 256, 12), likewise, and at J = 9000 (candidates read
-    from global memory) against the plain version on the CPU (the same
-    function, a loop of 18,000 candidate steps). Timed: kernel (median of
-    5 runs of 5 calls), plain version (one call). Returns the record."""
+    (41, 65, 33), (149, 256, 12), likewise; past the register geometry, at
+    the reference-exact candidates of window 16384 (J = 595) of 2 symbols x
+    24 frames at capacity 1024 (its region in shared memory) and on a
+    spread stream at capacity 2500 (its region in shared memory, no room
+    for the candidate ring) and 3000 (its region in global scratch), and a
+    stream of 300 periods beyond each other's tolerance at capacity 600
+    (a frame touches ~300 rows, ten slots of rows in use); and at
+    J = 9000 (candidates read from global memory) against the plain
+    version on the CPU (the same function, a loop of 18,000 candidate
+    steps). Timed: kernel (median of 5 runs of 5 calls), plain version
+    (one call), beside the bound and the chain's floor (`b4s_chain`).
+    Returns the record."""
     from wavespec_tpu_torch import V757Config
     from wavespec_tpu_torch.analyze.trackers import (TrackerConfig, TrackerState,
                                                      track_frames_plain)
@@ -1268,8 +1413,10 @@ def check_sequential_tracker(dev, tag) -> dict:
                         and torch.equal(getattr(tail[1], f), getattr(state, f)))]
         if bad:
             raise AssertionError(f"B4s tracker_sequential {label}: {bad} differ")
+        plan = kt.launch_plan(cand[0].shape[-1], tcfg.capacity, tcfg.n_slots, sequential=True)
         log(f"B4s tracker_sequential {label} {tuple(cand[0].shape)}, C={tcfg.capacity} "
-            f"S={tcfg.n_slots}: bitwise equal to plain{' (on the CPU)' if plain_on else ''} on "
+            f"S={tcfg.n_slots} (rows in {plan.memory}, {plan.rows} a lane): bitwise equal to "
+            f"plain{' (on the CPU)' if plain_on else ''} on "
             f"the 11 outputs and the final state, resumed at frame {cut} equal to one shot "
             f"({int((state_p.uid > 0).sum(-1).max())} rows in use at most, "
             f"{int(out_p['slot_valid'].sum())} valid slot frames)")
@@ -1286,32 +1433,43 @@ def check_sequential_tracker(dev, tag) -> dict:
     # the work this run's data needs: a candidate's cost (~10 operations)
     # on each row alive at its frame's start, and the slot fill and leak
     # scan (~15 a slot) over the same rows; the rows a frame's own
-    # candidates open are left out (a lower count). The rows alive come
-    # from the kernel run a frame at a time, resumed, as held above.
-    alive, fstate = 0, None
-    for f in range(t):
-        if fstate is not None:
-            alive += int(fstate.alive.sum())
-        fstate = kt.track_frames_kernel(*(x[:, f:f + 1].contiguous() for x in cand),
-                                        exact.tracker, init=fstate)[1]
-    ops = alive * (10 * j + 15 * s)
+    # candidates open are left out (a lower count)
+    chain = b4s_chain(cand, exact.tracker)
+    ops = chain["alive"] * (10 * j + 15 * s)
     bnd = bound(nbytes(*cand, *out.values(), *state), ops)
-    floor_ms = t * j * B4S_STEP_CYCLES / sm_clock_hz() * 1e3
+    floor_ms = chain["cycles"] / sm_clock_hz() * 1e3
     log(f"B4s tracker_sequential {tuple(cand[0].shape)}, capacity {c}: kernel {ms:.4f} ms "
         f"({1e6 * ms / (t * j):.1f} ns a candidate step), plain {plain_ms:.1f} ms (one call), "
-        f"bound {bnd[0]:.5f} ms ({bnd[1]}; {alive} row frames alive of {b * t * c}), chain "
-        f"latency floor {floor_ms:.4f} ms ({t * j} dependent candidate steps); no PyTorch "
-        f"call computes it {tag}")
+        f"bound {bnd[0]:.5f} ms ({bnd[1]}; {chain['alive']} row frames alive of {b * t * c}), "
+        f"chain latency floor {floor_ms:.4f} ms ({t * j} dependent candidate steps); rows "
+        f"touched a frame {chain['touched_mean']:.1f} on average, {chain['touched_max']} at most; "
+        f"no PyTorch call computes it {tag}")
     for jj, cc, ss, kind in ((7, 16, 1, "ties"), (41, 65, 33, "spread"), (149, 256, 12, "spread")):
         stream = [torch.from_numpy(a).to(dev) for a in
                   tracker_stream(40, jj, SEED + jj + cc, (4,), ties=kind == "ties",
                                  spread=kind == "spread")]
         held(stream, TrackerConfig(capacity=cc, n_slots=ss, sequential_match=True),
              f"{kind} stream")
+    # past the register geometry: window 16384's candidates at capacity
+    # 1024 (24 frames: the plain loop's 595 steps a frame), and a capacity
+    # whose region passes shared memory
+    exact16 = V757Config(window=16384, n_candidates=0, sliding_spectral=True,
+                         tracker=TrackerConfig(capacity=1024, sequential_match=True))
+    x16 = torch.from_numpy(bench_series(2, 24, window=16384)).to(dev)
+    held([c.contiguous() for c in pv._spectral_frames(x16, exact16, 1)[:4]], exact16.tracker,
+         "reference-exact candidates at window 16384")
+    stream = [torch.from_numpy(a).to(dev) for a in tracker_stream(30, 149, SEED + 3000, (2,),
+                                                                  spread=True)]
+    for cap in (2500, 3000):   # the region in shared memory beside no ring; in global scratch
+        held(stream, TrackerConfig(capacity=cap, sequential_match=True), "spread stream")
+    # a frame touching ~300 rows (ten slots of rows in use)
+    held([torch.from_numpy(a).to(dev) for a in geometric_stream(6, 300, SEED + 300)],
+         TrackerConfig(capacity=600, sequential_match=True), "geometric stream")
     wide = [torch.from_numpy(a).to(dev) for a in tracker_stream(2, 9000, SEED + 9, (1,), spread=True)]
     held(wide, TrackerConfig(capacity=64, sequential_match=True), "J = 9000 (global memory)",
          plain_on="cpu")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd,
+                floor_ms=floor_ms)
 
 
 def device_ops(fn, calls: int) -> float:
@@ -1868,6 +2026,9 @@ def reference_exact(dev, tag, counters, reset_counts) -> dict:
     if bad:
         raise AssertionError(f"(i) reference-exact mode: the matcher and tail resumed differ "
                              f"from one shot in {bad}")
+    chain = b4s_chain(cand, exact.tracker)
+    floor_ms = chain["cycles"] / sm_clock_hz() * 1e3
+    del spectral, cand
     n_cpu = 4
     cpu_x = {k: v.numpy() for k, v in run_v757_batch(x_host[:n_cpu], exact, device="cpu").items()}
     bad, _ = v757_readings({k: v[:n_cpu].cpu().numpy() for k, v in card_x.items()}, cpu_x)
@@ -1878,9 +2039,167 @@ def reference_exact(dev, tag, counters, reset_counts) -> dict:
         f"symbols agree with the CPU run of the port (discrete fields exact): {not bad} "
         f"{bad}; run_v757_batch {ms:.3f} ms a call, "
         f"the matcher alone {match_ms:.4f} ms ({1e6 * match_ms / (t * j):.1f} ns a candidate "
-        f"step; median of 5 runs) {tag}")
+        f"step; median of 5 runs), chain latency floor {floor_ms:.4f} ms; rows alive at most "
+        f"{chain['alive_max']}, touched a frame {chain['touched_mean']:.1f} on average and "
+        f"{chain['touched_max']} at most {tag}")
     if bad:
         raise AssertionError(f"(i) reference-exact mode, card vs CPU: {bad}")
+    return launches
+
+
+# (i16k): frames of the recorded B4s call held against the plain loop at
+# its start and at its end (595 candidate steps a frame), and the
+# card-against-CPU run's symbols and frames, sized to the script's time
+# limit
+I16K_HELD_FRAMES = 24
+I16K_CPU_SYMBOLS, I16K_CPU_FRAMES = 2, 128
+
+
+def reference_exact_16k(dev, tag, counters, reset_counts) -> dict:
+    """Phase (i16k) of `live_v757`: the reference-exact mode at the
+    indicator's default window 16384 (every in-band bin of [18, 52], J =
+    595 a frame), capacity 1024 and 12 slots (B4s in its memory geometry,
+    the rows in shared memory), 128 symbols x 512 frames of
+    `bench_series(128, 512, window=16384)`. Checks: outputs finite and of
+    their shapes; the matcher ran once a call, through B4s; the recorded
+    B5 call bitwise equal to its plain version, the recorded B4s call's
+    first and last `I16K_HELD_FRAMES` frames bitwise equal to the plain
+    loop on them (the last from the kernel's state at their start), and
+    the kernel run on them alone, state included; B4s and B5
+    resumed over three runs of frames of one spectral stage bitwise equal
+    to one shot; card against the CPU run of the port on
+    `I16K_CPU_SYMBOLS` symbols x `I16K_CPU_FRAMES` frames (discrete fields
+    exact; slot_power no farther from the CPU's than the two spectral
+    stages' candidate powers, which stay within 2e-4 of the frame's
+    strongest band power; the rest at `testing`'s v7.57 limits). Prints the call's and the matcher's ms (ns a candidate step),
+    the chain's floor, the rows alive at most and touched a frame, and the
+    frames whose outputs change at capacity 256. Returns the launches of
+    its path."""
+    from wavespec_tpu_torch import V757Config, run_v757_batch
+    from wavespec_tpu_torch.analyze.trackers import (TrackerConfig, TrackerState,
+                                                     track_frames, track_frames_plain)
+    from wavespec_tpu_torch.kernels import tracker as kt
+    from wavespec_tpu_torch.pipeline import v757 as pv
+    from wavespec_tpu_torch.pipeline.tail import v757_tail_plain
+    from wavespec_tpu_torch.testing import v757_readings
+
+    launches = {}
+    path_launches = _path_launches(launches, counters, reset_counts)
+    window = 16384
+    exact = V757Config(window=window, n_candidates=0, sliding_spectral=True,
+                       tracker=TrackerConfig(capacity=1024, sequential_match=True))
+    x = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES, window=window)).to(dev)
+    run_v757_batch(x, exact)          # warm-up: tables, plans
+    card_x, calls = recorded(path_launches, "reference-exact (i16k)",
+                             lambda: run_v757_batch(x, exact), ("tracker_sequential", "v757_tail"))
+    shape = f"{V757_SYMBOLS} symbols x {V757_FRAMES} frames"
+    for k, v in card_x.items():
+        if v.shape[:2] != (V757_SYMBOLS, V757_FRAMES) or (
+                v.is_floating_point() and not torch.isfinite(v).all()):
+            raise AssertionError(f"(i16k) reference-exact mode: {k} {tuple(v.shape)} malformed")
+    count = {}
+    for name, args, kw, out in calls.calls:
+        count[name] = count.get(name, 0) + 1
+        if name == "track_frames":
+            # the first frames from a fresh start, and the last ones (the
+            # most rows alive) from the kernel's state at their start
+            n, held = args[0].shape[-2], I16K_HELD_FRAMES
+            late = kt.track_frames_kernel(*(a[:, :n - held].contiguous() for a in args[:4]),
+                                          *args[4:], **kw)[1]
+            bad = []
+            for lo, init, final in ((0, kw.get("init"), None), (n - held, late, out[1])):
+                part = [a[:, lo:lo + held].contiguous() for a in args[:4]]
+                ref, ref_state = track_frames_plain(*part, *args[4:], **{**kw, "init": init})
+                got, got_state = kt.track_frames_kernel(*part, *args[4:], **{**kw, "init": init})
+                bad += [f"{k} from frame {lo}" for k in ref
+                        if not (torch.equal(out[0][k][:, lo:lo + held], ref[k])
+                                and torch.equal(got[k], ref[k]))]
+                bad += [f"state.{f} from frame {lo}" for f in TrackerState._fields
+                        if not (torch.equal(getattr(got_state, f), getattr(ref_state, f))
+                                and (final is None
+                                     or torch.equal(getattr(final, f), getattr(ref_state, f))))]
+        else:
+            got, ref = out, v757_tail_plain(*args, **kw)
+            if kw.get("return_state"):
+                (got, state), (ref, ref_state) = got, ref
+                got = {**got, **{f"state.{k}": v for k, v in state._asdict().items()}}
+                ref = {**ref, **{f"state.{k}": v for k, v in ref_state._asdict().items()}}
+            bad = [k for k in ref if not torch.equal(got[k], ref[k])]
+        if bad:
+            raise AssertionError(f"(i16k): the recorded {name} call differs from its plain "
+                                 f"version in {bad}")
+    if count.get("track_frames") != 1:
+        raise AssertionError(f"(i16k): the matcher ran {count.get('track_frames')} times a call")
+    del calls
+    ms = cuda_ms(lambda: run_v757_batch(x, exact), warmup=0)
+    spectral = pv._spectral_frames(x, exact, 1)
+    cand = spectral[:4]
+    match_ms = cuda_ms(lambda: track_frames(*cand, exact.tracker))
+    t, j = cand[0].shape[-2:]
+    newest, price_prev = pv._frame_prices(x, exact, 1, t)
+    one = pv._slots_and_tail(spectral, newest, price_prev, exact, 1, return_state=True)
+    bounds, parts, ts, tl = (0, t // 5 + 1, 3 * t // 5, t), [], None, None
+    for lo, hi in zip(bounds, bounds[1:]):
+        out, ts, tl = pv._slots_and_tail(
+            tuple(c[:, lo:hi].contiguous() for c in spectral), newest[:, lo:hi].contiguous(),
+            price_prev, exact, 1, tracker_init=ts, tail_init=tl, return_state=True)
+        parts.append(out)
+    bad = [k for k in one[0] if not torch.equal(torch.cat([p[k] for p in parts], 1), one[0][k])]
+    bad += [f for f, a, b in zip(ts._fields, ts, one[1]) if not torch.equal(a, b)]
+    bad += [f"tail state {i}" for i, (a, b) in enumerate(zip(tl, one[2])) if not torch.equal(a, b)]
+    del parts
+    if bad:
+        raise AssertionError(f"(i16k): the matcher and tail resumed differ from one shot in {bad}")
+    chain = b4s_chain(cand, exact.tracker)
+    floor_ms = chain["cycles"] / sm_clock_hz() * 1e3
+    # capacity 256 against 1024 on the same spectral stage: the frames
+    # (symbol, frame) where any output differs
+    small = dataclasses.replace(exact, tracker=dataclasses.replace(exact.tracker, capacity=256))
+    o256 = pv._slots_and_tail(spectral, newest, price_prev, small, 1)
+    changed = torch.zeros(cand[0].shape[:2], dtype=torch.bool, device=dev)
+    for k, v in one[0].items():
+        d = o256[k] != v
+        changed |= d if d.dim() == 2 else d.any(-1)
+    first = [int(f) for f in changed.any(0).nonzero()[:1].flatten()]
+    del one, o256, spectral, cand
+    # card against the CPU run of the port, on a smaller batch: every
+    # field at `testing`'s v7.57 limits but slot_power, a candidate's band
+    # power, whose float32 error at this window is a share of the frame's
+    # strongest bin: the two spectral stages' candidate powers within 2e-4
+    # of it (the spectra's 1e-4, squared), and slot_power no farther apart
+    # than they are (the same trackers hold the slots)
+    xs = bench_series(I16K_CPU_SYMBOLS, I16K_CPU_FRAMES, window=window)
+    card_s = {k: v.cpu().numpy() for k, v in
+              run_v757_batch(torch.from_numpy(xs).to(dev), exact).items()}
+    cpu_s = {k: v.numpy() for k, v in run_v757_batch(xs, exact, device="cpu").items()}
+    pw_cpu = pv._spectral_frames(torch.from_numpy(xs), exact, 1)[1].numpy()
+    pw_card = pv._spectral_frames(torch.from_numpy(xs).to(dev), exact, 1)[1].cpu().numpy()
+    strongest = pw_cpu.max(-1, keepdims=True)
+    spec_share = float((np.abs(pw_card - pw_cpu) / strongest).max())
+    pw_share = float((np.abs(card_s["slot_power"] - cpu_s["slot_power"]) / strongest).max())
+    bad, _ = v757_readings({k: v for k, v in card_s.items() if k != "slot_power"},
+                           {k: v for k, v in cpu_s.items() if k != "slot_power"})
+    if spec_share > 2e-4 or pw_share > spec_share:
+        bad.append(f"slot_power {pw_share:.3e}, candidate powers {spec_share:.3e} of the "
+                   f"frame's strongest band power (tol 2e-4)")
+    log(f"(i16k) reference-exact mode (all {j} in-band bins at window {window}, sequential "
+        f"matcher B4s, capacity 1024, rows in "
+        f"{kt.launch_plan(j, 1024, 12, sequential=True).memory} memory) at {shape}: outputs "
+        f"finite and of their shapes; the recorded B5 call bitwise equal to plain and the "
+        f"recorded B4s call's first and last {I16K_HELD_FRAMES} frames bitwise equal to the "
+        f"plain loop, state included (cut: its {j} steps a frame); the matcher and tail resumed over frames "
+        f"{list(bounds)} bitwise equal to one shot; {I16K_CPU_SYMBOLS} symbols x "
+        f"{I16K_CPU_FRAMES} frames card against the CPU run of the port (discrete fields "
+        f"exact; candidate powers within {spec_share:.3e} and slot_power within "
+        f"{pw_share:.3e} of the frame's strongest band power, tol 2e-4): {not bad} {bad}; "
+        f"rows alive at most {chain['alive_max']}, touched a frame "
+        f"{chain['touched_mean']:.1f} on average and {chain['touched_max']} at most; at "
+        f"capacity 256 the outputs change on {int(changed.sum())} of {changed.numel()} symbol "
+        f"frames (first at frame {first}); run_v757_batch {ms:.3f} ms a call, the matcher "
+        f"alone {match_ms:.4f} ms ({1e6 * match_ms / (t * j):.1f} ns a candidate step; median "
+        f"of 5), chain latency floor {floor_ms:.4f} ms {tag}")
+    if bad:
+        raise AssertionError(f"(i16k) reference-exact mode, card vs CPU: {bad}")
     return launches
 
 
@@ -1929,11 +2248,14 @@ def live_v757(dev, tag, counters, reset_counts) -> dict:
     over three runs of frames of one spectral stage bitwise equal to one
     shot, the first 4 symbols
     against the CPU (discrete fields exact, floats within `testing`'s
-    v7.57 limits); the call and the matcher alone timed."""
+    v7.57 limits); the call and the matcher alone timed, with the chain's
+    floor. (i16k) the same mode at window 16384 and capacity 1024
+    (`reference_exact_16k`)."""
     launches = sliding_route(dev, tag, counters, reset_counts)
     fleet_launches = online_fleet(dev, tag, counters, reset_counts)[0]
     return {"launches": {**launches, **fleet_launches,
-                         **reference_exact(dev, tag, counters, reset_counts)}}
+                         **reference_exact(dev, tag, counters, reset_counts),
+                         **reference_exact_16k(dev, tag, counters, reset_counts)}}
 
 
 PRESET_TEXT_W1024 = ("time: dc(mode=0); extract: window=1024, top_k=6, method=music, "
@@ -3824,7 +4146,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": f"wavespec_tpu_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            **({"floor_ms": r["floor_ms"]} if "floor_ms" in r else {})})
     log(f"kernel launches over every main path: {launches}")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ candidate streams: all 11 per-frame outputs and the final state equal,
 at J = 24 and at an all-bins J above one Pallas slab, for a symbol batch,
 on tie-heavy streams (the stream `chip_smoke.py` holds kernel B4 to its
 plain version on) at 1, 12 and 32 slots, and across a resume split; the
-reference-exact sequential matcher likewise; and the block-resumable
-Ehlers filter of the resumable v7.57 stage.
+reference-exact sequential matcher likewise, also past 256 rows, and the
+vectorized one past 256 rows and 64 slots; the kernel's size rules; and
+the block-resumable Ehlers filter of the resumable v7.57 stage.
 """
 
 import dataclasses
@@ -153,8 +154,9 @@ def test_the_kernel_takes_the_sequential_matcher():
     """B4 runs both matchers, the sequential one as its mode B4s: on the
     CPU its wrapper takes the plain version and launches nothing (neither
     mode's count moves); its launch plan takes a sequential config as it
-    takes the vectorized one; and `pipeline.v757.check_card_limits` names
-    the capacity limit for both matchers before any work."""
+    takes the vectorized one; and `pipeline.v757.check_card_limits` takes
+    every capacity for both matchers (257 and 1024 rows in shared memory,
+    3000 in global scratch), refusing only a capacity below 1."""
     from wavespec_tpu_torch.kernels.tracker import MAX_CAPACITY, launch_plan, sequential_mode
     from wavespec_tpu_torch.pipeline.v757 import V757Config, check_card_limits
 
@@ -167,15 +169,77 @@ def test_the_kernel_takes_the_sequential_matcher():
                     {f: getattr(want[1], f).numpy() for f in ptr.TrackerState._fields})
     assert (track_frames_kernel.launches, sequential_mode.launches) == before
 
-    for j, c, s in ((149, 256, 12), (24, 64, 12), (9000, 65, 33)):
+    for j, c, s in ((149, 256, 12), (24, 64, 12), (9000, 65, 33), (595, 1024, 12), (24, 64, 100)):
         assert launch_plan(j, c, s, sequential=True) == launch_plan(j, c, s)
     for seq in (False, True):
         tcfg = ptr.TrackerConfig(capacity=MAX_CAPACITY, sequential_match=seq)
         check_card_limits(V757Config(n_candidates=0, tracker=tcfg))
-        matcher = "sequential" if seq else "vectorized"
-        with pytest.raises(ValueError, match=f"capacity {MAX_CAPACITY + 1}.*{matcher} matcher"):
-            check_card_limits(V757Config(tracker=dataclasses.replace(
-                tcfg, capacity=MAX_CAPACITY + 1)))
+        for cap, memory in ((MAX_CAPACITY + 1, "shared"), (1024, "shared"), (3000, "global")):
+            check_card_limits(V757Config(n_candidates=0, tracker=dataclasses.replace(
+                tcfg, capacity=cap)))
+            assert launch_plan(595, cap, 12, sequential=seq).memory == memory
+        with pytest.raises(ValueError, match="each >= 1"):
+            check_card_limits(V757Config(tracker=dataclasses.replace(tcfg, capacity=0)))
+
+
+def geometric_stream(t: int, j: int, seed: int):
+    """Candidates ``[t, j]`` whose j periods, 5 x 1.12^k in a shuffled
+    order with 1% jitter, lie beyond each other's tolerance: each keeps a
+    row of its own, so a frame holds about j rows."""
+    rng = np.random.default_rng(seed)
+    base = 5.0 * 1.12 ** np.arange(j)
+    per = np.stack([rng.permutation(base) * (1 + 0.01 * rng.standard_normal(j))
+                    for _ in range(t)])
+    valid = rng.random(per.shape) > 0.05
+    per = np.where(valid, per, 0.0).astype(np.float32)
+    pw = (rng.gamma(2.0, 2.0, size=per.shape) * valid).astype(np.float32)
+    return per, pw, (4096 / np.maximum(per, 1.0)).astype(np.int32), valid
+
+
+PAST_256_CASES = {
+    # (stream, t, j, seed, capacity, rows alive at the end at least)
+    "spread_595": ("spread", 3, 595, 31, 300, 65),
+    "ties_595": ("ties", 3, 595, 32, 257, 1),
+    "rows_past_256": ("geometric", 4, 300, 33, 320, 257),
+    "rows_used_up": ("geometric", 4, 300, 34, 257, 200),
+}
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("case", list(PAST_256_CASES))
+def test_sequential_match_past_256_rows_matches_jax(case):
+    """The reference-exact matcher past 256 rows (the kernel's memory
+    geometry): every output and the final state equal to the JAX
+    package's XLA scan over 595 candidates a frame, as many as window
+    16384's band [18, 52] gives, on a spread stream (more than 64 rows
+    alive) and a tie-heavy one; and over 300 periods beyond each other's
+    tolerance, past 256 rows alive, and at a capacity that they fill, so
+    that the dead rows run out and candidates are dropped."""
+    kind, t, j, seed, cap, alive = PAST_256_CASES[case]
+    frames = (geometric_stream(t, j, seed) if kind == "geometric" else
+              candidate_stream(t, j, seed, ties=kind == "ties", spread=kind == "spread"))
+    jcfg = jtr.TrackerConfig(capacity=cap, sequential_match=True)
+    want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
+    got, gstate = ptr.track_frames(*map(torch.from_numpy, frames),
+                                   ptr.TrackerConfig(**dataclasses.asdict(jcfg)))
+    assert int(gstate.alive.sum()) >= alive
+    if case == "rows_used_up":   # more periods in frame 0 than rows: every row made, some dropped
+        assert int(frames[3][0].sum()) > cap and int(gstate.next_uid) - 1 == cap
+    assert_same(got, gstate, want, jax_state_np(wstate))
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_vectorized_match_past_256_rows_and_64_slots_matches_jax():
+    """The vectorized matcher at capacity 300 and 100 slots (the kernel's
+    memory geometry for rows and slots): every output and the final state
+    equal to the JAX package's XLA scan, with slots past 64 filled."""
+    frames = candidate_stream(6, 149, 34, spread=True)
+    jcfg = jtr.TrackerConfig(capacity=300, n_slots=100)
+    want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
+    got, gstate = ptr.track_frames(*map(torch.from_numpy, frames),
+                                   ptr.TrackerConfig(**dataclasses.asdict(jcfg)))
+    assert bool(got["slot_valid"][..., 64:].any())
+    assert_same(got, gstate, want, jax_state_np(wstate))
 
 
 @pytest.mark.parametrize("period", [128, 1024])
@@ -243,8 +307,10 @@ def test_kernel_launch_plan():
     """B4's size rule, without a launch: rows and slots a lane from the
     capacity and slot count, frames a stage from J (one frame from about
     1,900 candidates), the global-memory layout where one frame's
-    candidates pass the card's 227 KB a block, and a refusal, naming the
-    limit, only past 256 rows or 64 slots."""
+    candidates pass the card's 227 KB a block; past 256 rows or 64 slots
+    the memory geometry (ceil(c / 32) rows and ceil(s / 32) slots a lane
+    in one region: shared memory where it fits beside the ring, else
+    global scratch), so that only a size below 1 is refused."""
     from wavespec_tpu_torch.kernels.tracker import MAX_CAPACITY, MAX_SLOTS, launch_plan
 
     assert launch_plan(24, 64, 12)[:3] == (2, 1, 16)
@@ -252,8 +318,24 @@ def test_kernel_launch_plan():
     assert launch_plan(24, 128, 33)[:2] == (4, 2)
     assert launch_plan(24, 256, 64)[:2] == (8, 2)
     assert launch_plan(2458, 64, 12)[2] == 1
-    nr, ns, frames, smem = launch_plan(9000, 64, 12)
-    assert frames == 0 and smem == 0
-    for c, s in ((MAX_CAPACITY + 1, 12), (64, MAX_SLOTS + 1)):
-        with pytest.raises(ValueError, match="tracker kernel takes"):
-            launch_plan(24, c, s)
+    plan = launch_plan(9000, 64, 12)
+    assert plan.frames == 0 and plan.smem == 0 and plan.memory == "registers"
+    for c, s, rows, slots, memory in ((MAX_CAPACITY + 1, 12, 9, 1, "shared"),
+                                      (1024, 12, 32, 1, "shared"),
+                                      (64, MAX_SLOTS + 1, 2, 3, "shared"),
+                                      (64, 100, 2, 4, "shared"),
+                                      (3000, 12, 94, 1, "global")):
+        plan = launch_plan(24, c, s)
+        assert (plan.rows, plan.slots, plan.memory) == (rows, slots, memory), (c, s)
+        assert plan.region > 0 and plan.frames == 16
+        if memory == "shared":
+            assert plan.smem > plan.region and plan.smem <= 227 * 1024
+        else:
+            assert plan.region > 227 * 1024 and plan.smem < plan.region
+    # a region that fits only without the ring: candidates from global memory
+    for j, c in ((9000, 1024), (24, 2500)):
+        plan = launch_plan(j, c, 12)
+        assert (plan.memory, plan.frames, plan.smem) == ("shared", 0, plan.region)
+    for j, c, s in ((0, 64, 12), (24, 0, 12), (24, 64, 0)):
+        with pytest.raises(ValueError, match="each >= 1"):
+            launch_plan(j, c, s)

@@ -55,6 +55,10 @@ CASES = {
     "slots_33": (V757Config(window=256, min_period=18.0, max_period=52.0,
                             followfirst=FollowFirstConfig(n_slots=33)), 4,
                  dict(t=48, s=33, seed=8)),
+    # past 64 slots: the kernel's wide geometry (three slots a lane)
+    "slots_80": (V757Config(window=256, min_period=18.0, max_period=52.0,
+                            followfirst=FollowFirstConfig(n_slots=80)), 4,
+                 dict(t=32, s=80, seed=9)),
 }
 
 
@@ -176,9 +180,18 @@ if __name__ == "__main__":
 
 def test_slots_per_lane_names_the_slot_limit():
     """B5's size rule, without a launch: one slot a lane of the walking
-    warp up to 32, two up to 64, a refusal naming the limit past it."""
-    from wavespec_tpu_torch.kernels.v757_tail import MAX_SLOTS, slots_per_lane
+    warp up to 32 and two up to 64, in registers; past 64 ceil(s / 32) a
+    lane in the wide geometry's region, in shared memory where it fits
+    (100 slots) and in global scratch past it (2000); a refusal only
+    below one slot."""
+    from wavespec_tpu_torch.kernels.v757_tail import MAX_SLOTS, slots_per_lane, tail_plan
 
     assert [slots_per_lane(s) for s in (1, 32, 33, 64)] == [1, 1, 2, 2]
-    with pytest.raises(ValueError, match=f"1..{MAX_SLOTS} slots"):
-        slots_per_lane(MAX_SLOTS + 1)
+    assert [slots_per_lane(s) for s in (MAX_SLOTS + 1, 100, 2000)] == [3, 4, 63]
+    assert tail_plan(12, 16).memory == "registers" and tail_plan(12, 16).region == 0
+    for s, memory in ((MAX_SLOTS + 1, "shared"), (100, "shared"), (2000, "global")):
+        plan = tail_plan(s, 16)
+        assert plan.memory == memory and plan.region >= 4 * 22 * 32 * plan.slots
+        assert plan.smem == (plan.region if memory == "shared" else 0)
+    with pytest.raises(ValueError, match="1 slot or more"):
+        slots_per_lane(0)

@@ -15,14 +15,18 @@
 // Mode kSeq replaces only the matching and the row allocation: the
 // frame's candidates j = 0..J-1 in order, each on the rows as the earlier
 // candidates left them (`analyze/trackers.py::_sequential_match_update`
-// step for step): the eligible rows' costs (match_cost_fast, match_cost
-// where that is not sure), the warp's least cost by one redux.sync, the
-// least uid among the rows of that cost by a second, and the first row
-// holding it (or, unmatched, the first dead row) by a ballot in row order;
-// the lane that owns the row updates it at once. Its chain is J such
-// steps a frame (149 at the reference-exact mode's window 4096), each two
-// warp reductions and NR ballots long; deactivation, slots and leaks are
-// the vectorized mode's.
+// step for step). A candidate step is the eligible rows' costs
+// (match_cost_fast, match_cost where that is not sure), the warp's least
+// cost by one redux.sync, the least uid among the rows of that cost by a
+// second, and the first row holding it (or, unmatched, the first dead
+// row); the lane that owns the row updates it at once. It walks only the
+// row slots in use (every alive row lies in them): in the register
+// geometry a frame dispatches once to a step specialised to their count
+// (`seq_run<NR, U>`, the row found by a ballot a slot), in the memory
+// geometry a loop walks them (`seq_run_mem`, each lane keeping its first
+// row of least (cost, uid)). In both a least uid of 2^31 - 1 takes row 0,
+// as the plain version's first argmin does. Deactivation, slots and leaks
+// are the vectorized mode's.
 //
 // What bounds it: each frame reads 4 * J candidate words and writes
 // 11 * S words per symbol, a few hundred bytes, and does a few thousand
@@ -31,32 +35,38 @@
 // arithmetic: 1024 symbols (8 warps an SM) take about as long as 128.
 // A warp reduction is five dependent shuffles; one per candidate, slot
 // fill and slot leak search made a frame ~16 us on the H100, so none is
-// left on the chain (~3.4 us a frame).
+// left on the chain (~3.4 us a frame) but the sequential mode's (two a
+// candidate).
 //
 // Design: one warp per symbol (one block of 32 threads), the frame loop
-// inside the kernel, no warp reduction on the chain. Lane l owns capacity
-// rows l, l + 32, ... (NR rows a lane: 2 for C <= 64, 4 to 128, 8 to
-// 256) in registers, and slots l, l + 32 (NS: 1 for S <= 32, 2 to 64),
-// and publishes what other lanes read into shared memory: compact lists
-// of the rows each phase may take (eligible, fillable, possible leak),
-// built by ballot prefix counts in row order, and the rows' period,
-// power and fft. Frames arrive in chunks of F frames by cp.async into a
-// two-stage ring, so a chunk loads while the one before runs; F falls to
-// one frame as J grows, and where even one frame's candidates do not fit
-// in shared memory (J past ~8,000) the kernel reads them from global
-// memory instead (kStaged false). Only the first NR * 32 unmatched
-// candidates are kept: no more rows can be dead. Each phase keeps the
-// plain version's tie rule:
+// inside the kernel, no warp reduction on the chain. Two geometries:
+// - registers: lane l owns capacity rows l, l + 32, ... (NR rows a lane:
+//   2 for C <= 64, 4 to 128, 8 to 256) in registers, and slots l, l + 32
+//   (NS: 1 for S <= 32, 2 to 64), and publishes what other lanes read
+//   into static shared memory;
+// - memory (kMem; past 256 rows or 64 slots): the same steps over
+//   ceil(C / 32) rows and ceil(S / 32) slots a lane, with every row's and
+//   slot's state in one region, in dynamic shared memory where it fits
+//   next to the candidate ring, else a region of the caller's global
+//   scratch for each symbol. No capacity and no slot count is refused.
+// Lists of the rows each phase may take (eligible, fillable, possible
+// leak) are built by ballot prefix counts in row order. Frames arrive in
+// chunks of F frames by cp.async into a two-stage ring, so a chunk loads
+// while the one before runs; F falls to one frame as J grows, and where
+// even one frame's candidates do not fit in shared memory (J past ~8,000)
+// the kernel reads them from global memory instead (kStaged false). Only
+// the first 32 * NR unmatched candidates are kept: no more rows can be
+// dead. Each phase keeps the plain version's tie rule:
 // - matching: lane j scans the eligible rows in order, keeping the first
 //   row of least cost (`_first_argmin`; two running minima over
 //   alternate rows, joined by (cost, row)), with the tolerance test
 //   decided without its division wherever that is exact
 //   (`match_cost_fast`); each matched candidate lowers its row's
-//   (cost, j) by a 64-bit shared atomicMin, so a row keeps the first
-//   candidate of least cost; J > 32 runs in chunks of 32 candidates;
+//   (cost, j) by a 64-bit atomicMin, so a row keeps the first candidate
+//   of least cost; J > 32 runs in chunks of 32 candidates;
 // - the nth unmatched candidate takes the nth dead row (ballot prefix);
 // - slot keep: each row finds the slots holding its uid; each slot takes
-//   the lowest such row by a shared atomicMin;
+//   the lowest such row by an atomicMin;
 // - slot fill: each fillable row counts the fillable rows ahead of it in
 //   (power desc, uid asc, row asc), the plain version's two stable sorts,
 //   and the row of rank r takes the r-th free slot;
@@ -77,10 +87,12 @@
 namespace {
 
 constexpr float kBig = 1e30f;
+constexpr unsigned kBigBits = 0x7149f2cau;   // kBig's bits
 constexpr int kImax = 2147483647;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxFrames = 16;          // frames a stage holds at most
 constexpr int kStageBytes = 24 * 1024;  // staging budget per stage, sets F
+constexpr unsigned long long kNone = ~0ull;
 
 struct Inputs {
   const float* __restrict__ period;    // [B, T, J]
@@ -121,10 +133,15 @@ struct Outputs {
   int32_t* leak_bars;
 };
 
+// nr, ns: rows and slots a lane of the memory geometry; region_bytes: its
+// region a symbol; region_shared: the region lies in dynamic shared
+// memory (before the ring), else in the global scratch.
 struct Params {
   int T, J, C, S, F;
   float tol, leak_pr, leak_wr;
   int max_inactive, leak_min, leak_max;
+  int nr, ns, region_shared;
+  long long region_bytes;
 };
 
 // Frames per stage and the dynamic shared memory: per stage F * J
@@ -139,6 +156,82 @@ inline size_t dynamic_smem(int J) {
   const int F = frames_per_stage(J);
   return (size_t)(2 * stage_words(F, J)) * 4;
 }
+
+// The memory geometry's region for cp = 32 * nr rows and sp = 32 * ns
+// slots, carved in this order (16-byte items first).
+__host__ __device__ inline long long region_bytes(long long cp, long long sp) {
+  const long long bytes = (16 + 16 + 8) * cp + 4 * (cp + 4) + 11 * 4 * cp + 3 * cp + 8 * 4 * sp + sp;
+  return (bytes + 15) & ~15LL;
+}
+
+// Every array the phases share between lanes: static shared arrays in the
+// register geometry, the region in the memory geometry (where the row
+// state lies too: r_per, r_pw, r_fft are then the rows themselves).
+struct Lists {
+  int4* f_list;   // fillable: power bits, uid, row
+  int4* l_list;   // may leak: period bits, power bits, uid, row
+  unsigned long long* r_win;   // per row: least candidate, cost bits << 32 | j
+  float* e_per;   // eligible rows: period (padded by 4); kSeq: per row, its period if eligible, else 0
+  int32_t* e_row;
+  float* r_per;   // the rows other lanes read
+  float* r_pw;
+  int32_t* r_fft;
+  int32_t* u_j;   // the first unmatched candidates
+  int32_t* d_row; // dead rows at the frame's start (kSeq)
+  int32_t* s_su;  // per slot: its uid, its lowest alive row, the fill
+  int32_t* s_row;
+  int32_t* fill_uid;
+  int32_t* fill_row;
+};
+
+// The memory geometry's row and slot state, in the region after the
+// Lists arrays.
+struct MemState {
+  int32_t *bi, *uid;
+  int32_t *su, *luid, *lbars, *my_row;
+  uint8_t *al, *seen, *used, *lact;
+};
+
+__device__ inline void carve(uint8_t* base, int cp, int sp, Lists& l, MemState& m) {
+  uint8_t* q = base;
+  auto take = [&](long long bytes) { uint8_t* r = q; q += bytes; return r; };
+  l.f_list = reinterpret_cast<int4*>(take(16LL * cp));
+  l.l_list = reinterpret_cast<int4*>(take(16LL * cp));
+  l.r_win = reinterpret_cast<unsigned long long*>(take(8LL * cp));
+  l.e_per = reinterpret_cast<float*>(take(4LL * (cp + 4)));
+  l.r_per = reinterpret_cast<float*>(take(4LL * cp));
+  l.r_pw = reinterpret_cast<float*>(take(4LL * cp));
+  l.r_fft = reinterpret_cast<int32_t*>(take(4LL * cp));
+  l.e_row = reinterpret_cast<int32_t*>(take(4LL * cp));
+  l.u_j = reinterpret_cast<int32_t*>(take(4LL * cp));
+  l.d_row = reinterpret_cast<int32_t*>(take(4LL * cp));
+  m.bi = reinterpret_cast<int32_t*>(take(4LL * cp));
+  m.uid = reinterpret_cast<int32_t*>(take(4LL * cp));
+  l.s_su = reinterpret_cast<int32_t*>(take(4LL * sp));
+  l.s_row = reinterpret_cast<int32_t*>(take(4LL * sp));
+  l.fill_uid = reinterpret_cast<int32_t*>(take(4LL * sp));
+  l.fill_row = reinterpret_cast<int32_t*>(take(4LL * sp));
+  m.su = reinterpret_cast<int32_t*>(take(4LL * sp));
+  m.luid = reinterpret_cast<int32_t*>(take(4LL * sp));
+  m.lbars = reinterpret_cast<int32_t*>(take(4LL * sp));
+  m.my_row = reinterpret_cast<int32_t*>(take(4LL * sp));
+  m.al = take(cp);
+  m.seen = take(cp);
+  m.used = take(cp);
+  m.lact = take(sp);
+}
+
+// A lane's share of a per-row or per-slot array: N entries in registers
+// (entry i is row or slot lane + 32 i), or, in the memory geometry, a
+// pointer to the lane's first entry with a stride of 32.
+template <typename T, int N, bool kMem> struct LaneArr {
+  T v[N];
+  __device__ __forceinline__ T& operator[](int i) { return v[i]; }
+};
+template <typename T, int N> struct LaneArr<T, N, true> {
+  T* p;
+  __device__ __forceinline__ T& operator[](int i) const { return p[32 * i]; }
+};
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -356,77 +449,211 @@ __device__ __forceinline__ int seq_run(const SeqFrame& fr, int j, SeqCand& nx, R
   return fr.J;
 }
 
-// NR capacity rows a lane (row lane + 32 i), NS slots a lane (slot
-// lane + 32 u); kStaged: frames through the shared-memory ring, or read
-// from global memory where one frame's candidates do not fit in it.
-template <int NR, int NS, bool kStaged, bool kSeq>
-__global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool has_init,
-                                                     Outputs out, State fin, Params prm) {
-  constexpr int kRows = 32 * NR, kSlots = 32 * NS;
-  using Mask = typename SlotMask<NS>::T;
-  // rows other lanes read, and the compact row lists, in row order
-  __shared__ float r_per[kRows], r_pw[kRows];
-  __shared__ int32_t r_fft[kRows];
-  __shared__ int32_t e_row[kRows];                    // eligible for matching
-  __shared__ __align__(16) float e_per[kRows + 4];   // padded with 0 to a multiple of 4
-  __shared__ int4 f_list[kRows];   // fillable: power bits, uid, row
-  __shared__ int4 l_list[kRows];   // may leak: period bits, power bits, uid, row
-  // per row, its least candidate: cost bits << 32 | j (all ones: none)
-  __shared__ unsigned long long r_win[kRows];
-  // the first unmatched candidates: only as many as there are dead rows
-  // are ever taken
-  __shared__ int32_t u_j[kRows];
-  // per slot: its uid, the lowest alive row holding it (kRows: none), and
-  // the uid and row that fill it
-  __shared__ int32_t s_su[kSlots], s_row[kSlots], fill_uid[kSlots], fill_row[kSlots];
-  extern __shared__ uint32_t smem[];
-  const int J = prm.J, C = prm.C, S = prm.S, T = prm.T, F = kStaged ? prm.F : T;
-  const bool fast = prm.tol >= 1e-3f && prm.tol <= 1e6f;
-  uint32_t* ring = smem;                              // two stages
-  const int ring_step = kStaged ? stage_words(F, J) : 0;
+// ---- the sequential matcher in the memory geometry (mode kSeq) ----
 
+// A row's cost bits against candidate period p (match_cost_fast; a row
+// not eligible has period 0, a cost of kBig); `uns` is set where the test
+// is not sure for an eligible row.
+__device__ __forceinline__ unsigned fast_cost_bits(float p, float e, float tol, bool p_fast,
+                                                   bool& uns) {
+  bool u = !(p_fast & in_range(e));
+  const float cost = match_cost_fast(p, e, tol, u);
+  uns |= u & (e > 0.f);
+  return __float_as_uint(cost);   // costs >= 0: their bits order as they do
+}
+
+// A lane's running least (cost, uid) over its row slots, the first slot
+// on ties.
+struct RowLeast {
+  unsigned cost = kBigBits;
+  int uid = kImax, slot = 0;
+  __device__ __forceinline__ void take(unsigned c, int u, int i) {
+    const bool less = (c < cost) | ((c == cost) & (u < uid));
+    cost = less ? c : cost;
+    uid = less ? u : uid;
+    slot = less ? i : slot;
+  }
+  // the lesser in (cost, uid, slot) of two runs over disjoint slots
+  __device__ __forceinline__ void join(const RowLeast& o) {
+    const bool less = (o.cost < cost) |
+                      ((o.cost == cost) & ((o.uid < uid) | ((o.uid == uid) & (o.slot < slot))));
+    cost = less ? o.cost : cost;
+    uid = less ? o.uid : uid;
+    slot = less ? o.slot : slot;
+  }
+};
+
+// A lane's rows lane + 32 i of the region, and each row's period where it
+// is eligible (alive, bars_inactive 0), else 0 (a cost of kBig).
+struct MemRows {
+  LaneArr<float, 1, true> per, pw, el_per;
+  LaneArr<int, 1, true> fi, bi, uid;
+  LaneArr<bool, 1, true> al, seen;
+};
+
+// A frame's candidate steps over the rows of the region: seq_run's chain,
+// with the nu slots in use (rows lane + 32 i, i < nu, where every alive
+// row lies) walked in a loop, two slots side by side (four read slower).
+// Each lane keeps its first row of least (cost, uid); the warp's least
+// cost by one redux.sync and the least uid among the lanes of that cost
+// by a second (a least uid of 2^31 - 1 takes row 0, as the plain
+// version's first argmin does); the lane holding both
+// owns the row (where two lanes do, a third redux takes the first row).
+// Unmatched, a valid candidate takes the next row of the frame's dead
+// list `d_row` (rows leave it only by being made, in row order, so that
+// is the first dead row), or is dropped. The owner updates its row at
+// once; a lane reads only its own rows, so no step waits on a write of
+// another lane.
+__device__ __forceinline__ void seq_run_mem(const SeqFrame& fr, const MemRows& r,
+                                            const int32_t* d_row, int n_dead, int nu,
+                                            int& next_uid) {
+  int n_made = 0;
+  SeqCand nx{fr.cp[0], fr.cw[0], fr.cf[0], fr.cv[0] != 0};
+  for (int j = 0; j < fr.J; ++j) {
+    const SeqCand c = nx;
+    const int jn = j + 1 < fr.J ? j + 1 : j;
+    nx = SeqCand{fr.cp[jn], fr.cw[jn], fr.cf[jn], fr.cv[jn] != 0};
+    if (!(c.valid & (c.p > 0.f))) continue;   // the same in every lane: nothing changes
+    const bool p_fast = fr.fast & in_range(c.p);
+    // slots 0, 2, ... here and 1, 3, ... in `odd`, joined after; a lane
+    // whose cost test was unsure anywhere takes its least again by division
+    RowLeast lst, odd;
+    bool uns = false;
+    int i = 0;
+    for (; i + 1 < nu; i += 2) {
+      lst.take(fast_cost_bits(c.p, r.el_per[i], fr.tol, p_fast, uns), r.uid[i], i);
+      odd.take(fast_cost_bits(c.p, r.el_per[i + 1], fr.tol, p_fast, uns), r.uid[i + 1], i + 1);
+    }
+    if (i < nu) lst.take(fast_cost_bits(c.p, r.el_per[i], fr.tol, p_fast, uns), r.uid[i], i);
+    lst.join(odd);
+    if (uns) {
+      lst = RowLeast{};
+      for (int k = 0; k < nu; ++k) {
+        lst.take(__float_as_uint(match_cost(c.p, r.el_per[k], fr.tol)), r.uid[k], k);
+      }
+    }
+    const unsigned lc = lst.cost;
+    const int lu = lst.uid, li = lst.slot;
+    const unsigned least = __reduce_min_sync(kFull, lc);
+    bool own, made = false;
+    int oi;
+    if (__uint_as_float(least) < kBig) {
+      const int least_uid = __reduce_min_sync(kFull, lc == least ? lu : kImax);
+      const bool h = (lc == least) & (lu == least_uid) & (least_uid != kImax);
+      const unsigned hm = __ballot_sync(kFull, h);
+      own = least_uid == kImax ? fr.lane == 0 : h;
+      oi = least_uid == kImax ? 0 : li;
+      if (hm & (hm - 1)) {
+        const unsigned first = __reduce_min_sync(kFull, h ? 32u * li + fr.lane : ~0u);
+        own = fr.lane == static_cast<int>(first & 31u);
+        oi = static_cast<int>(first >> 5);
+      }
+    } else if (n_made < n_dead) {
+      const int row = d_row[n_made++];
+      own = fr.lane == (row & 31);
+      oi = row >> 5;
+      made = true;
+      nu = max(nu, oi + 1);
+    } else {
+      continue;   // no dead row left: dropped, as in the plain version
+    }
+    if (own) {
+      r.per[oi] = c.p;
+      r.pw[oi] = c.pw;
+      r.fi[oi] = c.fi;
+      r.seen[oi] = true;
+      r.bi[oi] = 0;
+      if (made) {
+        r.uid[oi] = next_uid;
+        r.al[oi] = true;
+      }
+      r.el_per[oi] = r.al[oi] ? c.p : 0.f;
+    }
+    next_uid += made ? 1 : 0;
+  }
+}
+
+// NR capacity rows a lane (row lane + 32 i), NS slots a lane (slot
+// lane + 32 u), in registers; kMem: prm.nr rows and prm.ns slots a lane
+// in the memory region instead (NR, NS unused). kStaged: frames through
+// the shared-memory ring, or read from global memory where one frame's
+// candidates do not fit in it. kSeq: the sequential matcher.
+template <int NR, int NS, bool kStaged, bool kSeq, bool kMem>
+__global__ void __launch_bounds__(32, 1) tracker_kernel(Inputs in, State init, bool has_init,
+                                                     Outputs out, State fin, Params prm,
+                                                     uint8_t* scratch) {
+  constexpr int kRows = kMem ? 1 : 32 * NR, kSlots = kMem ? 1 : 32 * NS;
+  using Mask = typename SlotMask<NS>::T;
+  // the register geometry's shared arrays (see Lists)
+  __shared__ __align__(16) int4 sh_f_list[kRows], sh_l_list[kRows];
+  __shared__ unsigned long long sh_r_win[kRows];
+  __shared__ __align__(16) float sh_e_per[kRows + 4];
+  __shared__ float sh_r_per[kRows], sh_r_pw[kRows];
+  __shared__ int32_t sh_r_fft[kRows], sh_e_row[kRows], sh_u_j[kRows];
+  __shared__ int32_t sh_d_row[1];   // (the memory geometry's)
+  __shared__ int32_t sh_s_su[kSlots], sh_s_row[kSlots], sh_fill_uid[kSlots], sh_fill_row[kSlots];
+  extern __shared__ __align__(16) uint32_t smem[];
+  const int J = prm.J, C = prm.C, S = prm.S, T = prm.T, F = kStaged ? prm.F : T;
+  const int nr = kMem ? prm.nr : NR, ns = kMem ? prm.ns : NS;
+  const int none_row = 32 * nr;   // s_row's "no row"
+  const bool fast = prm.tol >= 1e-3f && prm.tol <= 1e6f;
   const int b = blockIdx.x;
   const int lane = threadIdx.x;
   const unsigned lt = (1u << lane) - 1u;
-  int rr[NR];
-  bool ex[NR];
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    rr[i] = lane + 32 * i;
-    ex[i] = rr[i] < C;
-  }
 
-  // ---- state ----
-  float per[NR], pw[NR];
-  int fi[NR], bi[NR], uid[NR];
-  bool al[NR], seen[NR];
+  Lists l;
+  MemState m;
+  uint32_t* ring = smem;   // two stages
+  if constexpr (kMem) {
+    uint8_t* base = prm.region_shared ? reinterpret_cast<uint8_t*>(smem)
+                                      : scratch + static_cast<long long>(b) * prm.region_bytes;
+    carve(base, 32 * nr, 32 * ns, l, m);
+    if (prm.region_shared) ring = smem + prm.region_bytes / 4;
+  } else {
+    l = Lists{sh_f_list, sh_l_list, sh_r_win, sh_e_per, sh_e_row, sh_r_per, sh_r_pw, sh_r_fft,
+              sh_u_j, sh_d_row, sh_s_su, sh_s_row, sh_fill_uid, sh_fill_row};
+  }
+  const int ring_step = kStaged ? stage_words(F, J) : 0;
+
+  // ---- state: rows lane + 32 i, slots lane + 32 u ----
+  LaneArr<float, NR, kMem> per, pw;
+  LaneArr<int, NR, kMem> fi, bi, uid;
+  LaneArr<bool, NR, kMem> al, seen, used;
+  LaneArr<int, NS, kMem> su, luid, lbars, my_row;
+  LaneArr<bool, NS, kMem> lact;
+  if constexpr (kMem) {
+    per.p = l.r_per + lane; pw.p = l.r_pw + lane; fi.p = l.r_fft + lane;
+    bi.p = m.bi + lane; uid.p = m.uid + lane;
+    al.p = reinterpret_cast<bool*>(m.al) + lane; seen.p = reinterpret_cast<bool*>(m.seen) + lane;
+    used.p = reinterpret_cast<bool*>(m.used) + lane;
+    su.p = m.su + lane; luid.p = m.luid + lane; lbars.p = m.lbars + lane;
+    my_row.p = m.my_row + lane; lact.p = reinterpret_cast<bool*>(m.lact) + lane;
+  }
 #pragma unroll
-  for (int i = 0; i < NR; ++i) {
+  for (int i = 0; i < nr; ++i) {
     per[i] = 0.f; pw[i] = 0.f; fi[i] = 0; bi[i] = 0; uid[i] = 0;
     al[i] = false; seen[i] = false;
   }
   int next_uid = 1;
-  int su[NS], luid[NS], lbars[NS];   // slot lane + 32 u (< S)
-  bool lact[NS], sl[NS];
 #pragma unroll
-  for (int u = 0; u < NS; ++u) {
+  for (int u = 0; u < ns; ++u) {
     su[u] = 0; luid[u] = 0; lbars[u] = 0; lact[u] = false;
-    sl[u] = lane + 32 * u < S;
   }
   if (has_init) {
     const long long c0 = (long long)b * C;
 #pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      if (ex[i]) {
-        per[i] = init.period[c0 + rr[i]]; pw[i] = init.power[c0 + rr[i]];
-        fi[i] = init.fft[c0 + rr[i]]; al[i] = init.alive[c0 + rr[i]] != 0;
-        bi[i] = init.bars_inactive[c0 + rr[i]]; uid[i] = init.uid[c0 + rr[i]];
+    for (int i = 0; i < nr; ++i) {
+      const int row = lane + 32 * i;
+      if (row < C) {
+        per[i] = init.period[c0 + row]; pw[i] = init.power[c0 + row];
+        fi[i] = init.fft[c0 + row]; al[i] = init.alive[c0 + row] != 0;
+        bi[i] = init.bars_inactive[c0 + row]; uid[i] = init.uid[c0 + row];
       }
     }
     next_uid = init.next_uid[b];
 #pragma unroll
-    for (int u = 0; u < NS; ++u) {
-      if (sl[u]) {
+    for (int u = 0; u < ns; ++u) {
+      if (lane + 32 * u < S) {
         const long long s0 = (long long)b * S + lane + 32 * u;
         su[u] = init.slot_uid[s0]; lact[u] = init.leak_active[s0] != 0;
         luid[u] = init.leak_uid[s0]; lbars[u] = init.leak_bars[s0];
@@ -434,12 +661,13 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
     }
   }
 #pragma unroll
-  for (int u = 0; u < NS; ++u) {
-    s_su[lane + 32 * u] = su[u];
-    s_row[lane + 32 * u] = kRows;
+  for (int u = 0; u < ns; ++u) {
+    l.s_su[lane + 32 * u] = su[u];
+    l.s_row[lane + 32 * u] = none_row;
   }
 #pragma unroll
-  for (int i = 0; i < NR; ++i) r_win[rr[i]] = ~0ull;
+  for (int i = 0; i < nr; ++i) l.r_win[lane + 32 * i] = kNone;
+  __syncwarp();
 
   const long long sym0 = (long long)b * T * J;
   const int n_chunks = (T + F - 1) / F;
@@ -476,7 +704,7 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
       const int32_t* cf = c_fft + fj;
       const uint8_t* cv = c_valid + fj;
 
-      if constexpr (kSeq) {
+      if constexpr (kSeq && !kMem) {
         // ---- the reference-exact matcher: the candidates in order, each
         // on the rows as the frame's earlier candidates left them, over
         // the first nu slots of rows (every alive row lies there) ----
@@ -486,8 +714,11 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
           seen[i] = false;
           nu = __any_sync(kFull, al[i]) ? i + 1 : nu;
         }
+        bool ex[NR];
+#pragma unroll
+        for (int i = 0; i < NR; ++i) ex[i] = lane + 32 * i < C;
         SeqCand nx{cp[0], cw[0], cf[0], cv[0] != 0};
-        Rows<NR> rows{per, pw, fi, bi, uid, al, seen, ex};
+        Rows<NR> rows{per.v, pw.v, fi.v, bi.v, uid.v, al.v, seen.v, ex};
         const SeqFrame fr{cp, cw, cf, cv, J, C, lane, fast, prm.tol};
         int j = 0;
         while (j < J) {   // nu grows where a candidate takes the first row past them
@@ -502,24 +733,46 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
             default: if constexpr (NR >= 8) j = seq_run<NR, 8>(fr, j, nx, rows, next_uid, nu); break;
           }
         }
+      } else if constexpr (kSeq) {
+        // ---- the same in the memory geometry: the eligible periods, the
+        // dead rows in row order and the slots in use, then the steps ----
+        int n_dead = 0, nu = 0;
+        LaneArr<float, 1, true> el_per;
+        el_per.p = l.e_per + lane;
+        for (int i = 0; i < nr; ++i) {
+          const int row = lane + 32 * i;
+          const bool ex = row < C;
+          seen[i] = false;
+          el_per[i] = (ex & al[i] & (bi[i] == 0)) ? per[i] : 0.f;
+          const bool dead = ex & !al[i];
+          const unsigned dm = __ballot_sync(kFull, dead);
+          if (dead) l.d_row[n_dead + __popc(dm & lt)] = row;
+          n_dead += __popc(dm);
+          nu = __any_sync(kFull, al[i]) ? i + 1 : nu;
+        }
+        __syncwarp();
+        const MemRows rows{{per.p}, {pw.p}, el_per, {fi.p}, {bi.p}, {uid.p}, {al.p}, {seen.p}};
+        seq_run_mem(SeqFrame{cp, cw, cf, cv, J, C, lane, fast, prm.tol}, rows, l.d_row, n_dead,
+                    nu, next_uid);
+        __syncwarp();
       } else {
         // ---- eligible rows, in row order ----
-        bool el[NR];
         int n_elig = 0;
         bool rows_ok = true;
   #pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          el[i] = ex[i] & al[i] & (bi[i] == 0);
-          const unsigned em = __ballot_sync(kFull, el[i]);
-          if (el[i]) {
+        for (int i = 0; i < nr; ++i) {
+          const int row = lane + 32 * i;
+          const bool el = (row < C) & al[i] & (bi[i] == 0);
+          const unsigned em = __ballot_sync(kFull, el);
+          if (el) {
             const int k = n_elig + __popc(em & lt);
-            e_row[k] = rr[i];
-            e_per[k] = per[i];
+            l.e_row[k] = row;
+            l.e_per[k] = per[i];
           }
           n_elig += __popc(em);
-          rows_ok &= !el[i] | in_range(per[i]);
+          rows_ok &= !el | in_range(per[i]);
         }
-        if (lane < 4) e_per[n_elig + lane] = 0.f;   // costs kBig
+        if (lane < 4) l.e_per[n_elig + lane] = 0.f;   // cost kBig
         const bool rows_fast = fast & (__all_sync(kFull, rows_ok) != 0);
         __syncwarp();
 
@@ -541,7 +794,7 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
                 // minima, then the less (cost, row) of the two
                 float bc2 = kBig;
                 int bk2 = -1;
-                const float4* e4 = reinterpret_cast<const float4*>(e_per);
+                const float4* e4 = reinterpret_cast<const float4*>(l.e_per);
   #pragma unroll 2
                 for (int k = 0; k < n_elig; k += 4) {
                   const float4 e = e4[k >> 2];
@@ -564,7 +817,7 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
                 bc = kBig;
                 bk = -1;
                 for (int k = 0; k < n_elig; ++k) {
-                  const float c = match_cost(p, e_per[k], prm.tol);
+                  const float c = match_cost(p, l.e_per[k], prm.tol);
                   bk = c < bc ? k : bk;
                   bc = fminf(c, bc);
                 }
@@ -573,143 +826,187 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
           }
           const bool matched = bc < kBig;
           if (matched) {
-            atomicMin(&r_win[e_row[bk]],
+            atomicMin(&l.r_win[l.e_row[bk]],
                       (static_cast<unsigned long long>(__float_as_uint(bc)) << 32) | unsigned(j));
           }
           const bool unm = p_ok & !matched;
           const unsigned um = __ballot_sync(kFull, unm);
           const int pos = n_unm + __popc(um & lt);
-          if (unm & (pos < kRows)) u_j[pos] = j;
+          if (unm & (pos < 32 * nr)) l.u_j[pos] = j;
           n_unm += __popc(um);
         }
         __syncwarp();
   #pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const unsigned long long w = r_win[rr[i]];
-          r_win[rr[i]] = ~0ull;
-          const int wj = w == ~0ull ? -1 : static_cast<int>(w & 0xffffffffu);
+        for (int i = 0; i < nr; ++i) {
+          const int row = lane + 32 * i;
+          const unsigned long long w = l.r_win[row];
+          l.r_win[row] = kNone;
+          const int wj = w == kNone ? -1 : static_cast<int>(w & 0xffffffffu);
           seen[i] = wj >= 0;
-          if (seen[i]) { per[i] = cp[wj]; pw[i] = cw[wj]; fi[i] = cf[wj]; }
+          if (wj >= 0) { per[i] = cp[wj]; pw[i] = cw[wj]; fi[i] = cf[wj]; }
         }
 
         // ---- the nth unmatched candidate takes the nth dead row ----
-        int n_dead = 0;
+        int n_dead_v = 0;
   #pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const bool dead = ex[i] & !al[i];
+        for (int i = 0; i < nr; ++i) {
+          const bool dead = (lane + 32 * i < C) & !al[i];
           const unsigned dm = __ballot_sync(kFull, dead);
-          const int rank = n_dead + __popc(dm & lt);
+          const int rank = n_dead_v + __popc(dm & lt);
           if (dead & (rank < n_unm)) {
-            const int jj = u_j[rank];
+            const int jj = l.u_j[rank];
             per[i] = cp[jj]; pw[i] = cw[jj]; fi[i] = cf[jj];
             uid[i] = next_uid + rank; seen[i] = true; al[i] = true;
           }
-          n_dead += __popc(dm);
+          n_dead_v += __popc(dm);
         }
-        next_uid += min(n_dead, n_unm);
+        next_uid += min(n_dead_v, n_unm);
       }
 
       // ---- deactivate unseen; kill after max_inactive ----
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        bi[i] = seen[i] ? 0 : bi[i] + 1;
-        if (al[i] & !seen[i] & (bi[i] >= prm.max_inactive)) al[i] = false;
+      for (int i = 0; i < nr; ++i) {
+        const bool s_ = seen[i];
+        const int b_ = s_ ? 0 : bi[i] + 1;
+        bi[i] = b_;
+        if (al[i] & !s_ & (b_ >= prm.max_inactive)) al[i] = false;
       }
 
       // publish the rows, and the rows that may leak, in row order
       int n_leak = 0;
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        if (ex[i]) { r_per[rr[i]] = per[i]; r_pw[rr[i]] = pw[i]; r_fft[rr[i]] = fi[i]; }
-        const bool lk = ex[i] & al[i] & seen[i] & (bi[i] <= prm.leak_min);
+      for (int i = 0; i < nr; ++i) {
+        const int row = lane + 32 * i;
+        const bool ex = row < C;
+        if constexpr (!kMem) {
+          if (ex) { l.r_per[row] = per[i]; l.r_pw[row] = pw[i]; l.r_fft[row] = fi[i]; }
+        }
+        const bool lk = ex & al[i] & seen[i] & (bi[i] <= prm.leak_min);
         const unsigned lm = __ballot_sync(kFull, lk);
         if (lk) {
-          l_list[n_leak + __popc(lm & lt)] =
-              make_int4(__float_as_int(per[i]), __float_as_int(pw[i]), uid[i], rr[i]);
+          l.l_list[n_leak + __popc(lm & lt)] =
+              make_int4(__float_as_int(per[i]), __float_as_int(pw[i]), uid[i], row);
         }
         n_leak += __popc(lm);
       }
+      __syncwarp();
 
       // ---- stable slots: keep by uid while alive (lowest row) ----
-      bool live[NR], used[NR];
 #pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        live[i] = ex[i] & al[i];
-        Mask km = 0;   // the slots holding the row's uid
+      for (int i = 0; i < nr; ++i) {
+        const int row = lane + 32 * i;
+        const bool live = (row < C) & al[i];
+        if constexpr (kMem) {
+          bool u_ = false;
+          if (live) {
+            const int my_uid = uid[i];
+            for (int s = 0; s < S; ++s) {
+              const int sus = l.s_su[s];
+              if ((sus > 0) & (my_uid == sus)) { atomicMin(&l.s_row[s], row); u_ = true; }
+            }
+          }
+          used[i] = u_;
+        } else {
+          Mask km = 0;   // the slots holding the row's uid
 #pragma unroll 4
-        for (int s = 0; s < S; ++s) {
-          const int sus = s_su[s];
-          km |= (live[i] & (sus > 0) & (uid[i] == sus)) ? Mask(1) << s : Mask(0);
+          for (int s = 0; s < S; ++s) {
+            const int sus = l.s_su[s];
+            km |= (live & (sus > 0) & (uid[i] == sus)) ? Mask(1) << s : Mask(0);
+          }
+          used[i] = km != 0;
+          for (Mask mm = km; mm; mm &= mm - 1) atomicMin(&l.s_row[first_bit(mm)], row);
         }
-        used[i] = km != 0;
-        for (Mask m = km; m; m &= m - 1) atomicMin(&s_row[first_bit(m)], rr[i]);
       }
       __syncwarp();
-      int my_row[NS];
-      bool is_free[NS];
-      unsigned free_m[NS];
       int n_free = 0;
 #pragma unroll
-      for (int u = 0; u < NS; ++u) {
-        my_row[u] = s_row[lane + 32 * u];
-        s_row[lane + 32 * u] = kRows;
-        my_row[u] = my_row[u] < kRows ? my_row[u] : -1;
-        is_free[u] = sl[u] & (my_row[u] < 0);
-        if (is_free[u]) su[u] = 0;
-        free_m[u] = __ballot_sync(kFull, is_free[u]);
-        n_free += __popc(free_m[u]);
+      for (int u = 0; u < ns; ++u) {
+        const int sl = lane + 32 * u;
+        int r_ = l.s_row[sl];
+        l.s_row[sl] = none_row;
+        r_ = r_ < none_row ? r_ : -1;
+        my_row[u] = r_;
+        const bool is_free = (sl < S) & (r_ < 0);
+        if (is_free) su[u] = 0;
+        n_free += __popc(__ballot_sync(kFull, is_free));
       }
 
       // ---- fill free slots by rank (power desc, uid asc, row asc) ----
       if (n_free) {
-        bool fl[NR];
         int n_fill = 0;
         bool any_fl = false;
 #pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          fl[i] = live[i] & !used[i] & (pw[i] > 0.f);
-          const unsigned fm = __ballot_sync(kFull, fl[i]);
-          if (fl[i]) f_list[n_fill + __popc(fm & lt)] = make_int4(__float_as_int(pw[i]), uid[i], rr[i], 0);
+        for (int i = 0; i < nr; ++i) {
+          const int row = lane + 32 * i;
+          const bool fl = (row < C) & al[i] & !used[i] & (pw[i] > 0.f);
+          const unsigned fm = __ballot_sync(kFull, fl);
+          if (fl) l.f_list[n_fill + __popc(fm & lt)] = make_int4(__float_as_int(pw[i]), uid[i], row, 0);
           n_fill += __popc(fm);
-          any_fl |= fl[i];
+          any_fl |= fl;
         }
         __syncwarp();
         if (any_fl) {
-          int ahead[NR];
-#pragma unroll
-          for (int i = 0; i < NR; ++i) ahead[i] = 0;
-#pragma unroll 4
-          for (int k = 0; k < n_fill; ++k) {
-            const int4 e = f_list[k];
-            const float p = __int_as_float(e.x);
-            const int uu = e.y, row = e.z;
+          if constexpr (kMem) {
+            for (int i = 0; i < nr; ++i) {
+              const int row = lane + 32 * i;
+              if (!((row < C) & al[i] & !used[i] & (pw[i] > 0.f))) continue;
+              const float pwi = pw[i];
+              const int ui = uid[i];
+              int ahead = 0;
+              for (int k = 0; k < n_fill; ++k) {
+                const int4 e = l.f_list[k];
+                const float p = __int_as_float(e.x);
+                ahead += (p > pwi) | ((p == pwi) & ((e.y < ui) | ((e.y == ui) & (e.z < row))));
+              }
+              if (ahead < n_free) { l.fill_uid[ahead] = ui; l.fill_row[ahead] = row; }
+            }
+          } else {
+            bool fl[NR];
+            int ahead[NR];
 #pragma unroll
             for (int i = 0; i < NR; ++i) {
-              ahead[i] += (p > pw[i]) | ((p == pw[i]) & ((uu < uid[i]) | ((uu == uid[i]) & (row < rr[i]))));
+              fl[i] = (lane + 32 * i < C) & al[i] & !used[i] & (pw[i] > 0.f);
+              ahead[i] = 0;
             }
-          }
+#pragma unroll 4
+            for (int k = 0; k < n_fill; ++k) {
+              const int4 e = l.f_list[k];
+              const float p = __int_as_float(e.x);
+              const int uu = e.y, row = e.z;
 #pragma unroll
-          for (int i = 0; i < NR; ++i) {
-            if (fl[i] & (ahead[i] < n_free)) { fill_uid[ahead[i]] = uid[i]; fill_row[ahead[i]] = rr[i]; }
+              for (int i = 0; i < NR; ++i) {
+                ahead[i] += (p > pw[i]) | ((p == pw[i]) & ((uu < uid[i]) | ((uu == uid[i]) & (row < lane + 32 * i))));
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < NR; ++i) {
+              if (fl[i] & (ahead[i] < n_free)) { l.fill_uid[ahead[i]] = uid[i]; l.fill_row[ahead[i]] = lane + 32 * i; }
+            }
           }
         }
         __syncwarp();
         int before = 0;
 #pragma unroll
-        for (int u = 0; u < NS; ++u) {
-          const int fr = before + __popc(free_m[u] & lt);
-          if (is_free[u] & (fr < n_fill)) { su[u] = fill_uid[fr]; my_row[u] = fill_row[fr]; }
-          before += __popc(free_m[u]);
+        for (int u = 0; u < ns; ++u) {
+          const bool is_free = (lane + 32 * u < S) & (my_row[u] < 0);
+          const unsigned free_m = __ballot_sync(kFull, is_free);
+          const int fr = before + __popc(free_m & lt);
+          if (is_free & (fr < n_fill)) { su[u] = l.fill_uid[fr]; my_row[u] = l.fill_row[fr]; }
+          before += __popc(free_m);
         }
       }
       __syncwarp();
 
+      const int uid0 = __shfl_sync(kFull, uid[0], 0);   // row 0's
 #pragma unroll
-      for (int u = 0; u < NS; ++u) {
-        const bool sv = sl[u] & (su[u] > 0);
-        const float slot_p = sv ? r_per[my_row[u]] : 0.f;
-        const float slot_pw = sv ? r_pw[my_row[u]] : 0.f;
-        const int slot_fi = sv ? r_fft[my_row[u]] : 0;
+      for (int u = 0; u < ns; ++u) {
+        const bool slot_ok = lane + 32 * u < S;
+        const int sus = su[u];
+        const bool sv = slot_ok & (sus > 0);
+        const int mr = my_row[u];
+        const float slot_p = sv ? l.r_per[mr] : 0.f;
+        const float slot_pw = sv ? l.r_pw[mr] : 0.f;
+        const int slot_fi = sv ? l.r_fft[mr] : 0;
 
         // ---- leakage: per slot the strongest intruder (smallest uid) ----
         // four scans, of the list entries 4m + i, each keeping the first
@@ -720,42 +1017,47 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
           const float p_lim = slot_p * prm.leak_pr, w_lim = slot_pw * prm.leak_wr;
           int k = 0;
           for (; k + 4 <= n_leak; k += 4) {
-            const int4 e0 = l_list[k], e1 = l_list[k + 1], e2 = l_list[k + 2], e3 = l_list[k + 3];
-            acc[0].scan(e0, p_lim, w_lim, su[u]);
-            acc[1].scan(e1, p_lim, w_lim, su[u]);
-            acc[2].scan(e2, p_lim, w_lim, su[u]);
-            acc[3].scan(e3, p_lim, w_lim, su[u]);
+            const int4 e0 = l.l_list[k], e1 = l.l_list[k + 1], e2 = l.l_list[k + 2], e3 = l.l_list[k + 3];
+            acc[0].scan(e0, p_lim, w_lim, sus);
+            acc[1].scan(e1, p_lim, w_lim, sus);
+            acc[2].scan(e2, p_lim, w_lim, sus);
+            acc[3].scan(e3, p_lim, w_lim, sus);
           }
-          for (; k < n_leak; ++k) acc[0].scan(l_list[k], p_lim, w_lim, su[u]);
+          for (; k < n_leak; ++k) acc[0].scan(l.l_list[k], p_lim, w_lim, sus);
           acc[0].merge(acc[1]);
           acc[2].merge(acc[3]);
           acc[0].merge(acc[2]);
         }
         const float best = acc[0].power;
-        const int best_uid = acc[0].uid, best_row = acc[0].row;
+        // a least uid of 2^31 - 1 takes row 0, as the plain version's first argmin does
+        const bool to_row0 = acc[0].uid == kImax;
+        const int best_uid = to_row0 ? uid0 : acc[0].uid, best_row = to_row0 ? 0 : acc[0].row;
         const bool found = best > 0.f;
-        if (sl[u]) {
-          int bars = lact[u] ? lbars[u] + 1 : 0;
-          const bool was = lact[u] & !(bars > prm.leak_max);
+        if (slot_ok) {
+          const bool la = lact[u];
+          const int bars = la ? lbars[u] + 1 : 0;
+          const bool was = la & !(bars > prm.leak_max);
           const bool same = was & found & (luid[u] == best_uid);
-          lbars[u] = same ? bars : (found ? 1 : 0);
+          const int nb = same ? bars : (found ? 1 : 0);
+          lbars[u] = nb;
           lact[u] = found;
-          luid[u] = found ? best_uid : 0;
+          const int lu = found ? best_uid : 0;
+          luid[u] = lu;
 
           const long long o = ((long long)b * T + t) * S + lane + 32 * u;
           out.slot_period[o] = slot_p;
           out.slot_power[o] = slot_pw;
           out.slot_fft[o] = slot_fi;
           out.slot_valid[o] = sv;
-          out.slot_uid[o] = su[u];
+          out.slot_uid[o] = sus;
           out.leak_active[o] = found;
-          out.leak_uid[o] = luid[u];
+          out.leak_uid[o] = lu;
           const int lrow = found ? best_row : 0;
-          out.leak_period[o] = found ? r_per[lrow] : 0.f;
-          out.leak_power[o] = found ? r_pw[lrow] : 0.f;
-          out.leak_fft[o] = found ? r_fft[lrow] : 0;
-          out.leak_bars[o] = found ? lbars[u] : 0;
-          s_su[lane + 32 * u] = su[u];
+          out.leak_period[o] = found ? l.r_per[lrow] : 0.f;
+          out.leak_power[o] = found ? l.r_pw[lrow] : 0.f;
+          out.leak_fft[o] = found ? l.r_fft[lrow] : 0;
+          out.leak_bars[o] = found ? nb : 0;
+          l.s_su[lane + 32 * u] = sus;
         }
       }
       __syncwarp();
@@ -765,9 +1067,10 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
   // ---- final state ----
   const long long c0 = (long long)b * C;
 #pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    if (ex[i]) {
-      const long long o = c0 + rr[i];
+  for (int i = 0; i < nr; ++i) {
+    const int row = lane + 32 * i;
+    if (row < C) {
+      const long long o = c0 + row;
       fin.period[o] = per[i]; fin.power[o] = pw[i]; fin.fft[o] = fi[i];
       fin.alive[o] = al[i]; fin.seen[o] = seen[i];
       fin.bars_inactive[o] = bi[i]; fin.uid[o] = uid[i];
@@ -775,8 +1078,8 @@ __global__ void __launch_bounds__(32) tracker_kernel(Inputs in, State init, bool
   }
   if (lane == 0) fin.next_uid[b] = next_uid;
 #pragma unroll
-  for (int u = 0; u < NS; ++u) {
-    if (sl[u]) {
+  for (int u = 0; u < ns; ++u) {
+    if (lane + 32 * u < S) {
       const long long s0 = (long long)b * S + lane + 32 * u;
       fin.slot_uid[s0] = su[u]; fin.leak_active[s0] = lact[u];
       fin.leak_uid[s0] = luid[u]; fin.leak_bars[s0] = lbars[u];
@@ -793,66 +1096,110 @@ State state_from(void* const* p) {
                static_cast<int32_t*>(p[10]), static_cast<int32_t*>(p[11])};
 }
 
-template <int NR, int NS, bool kStaged, bool kSeq>
+template <int NR, int NS, bool kStaged, bool kSeq, bool kMem>
 int launch(const Inputs& ins, const State& st0, bool has_init, const Outputs& o,
-           const State& fin, const Params& prm, int B, size_t smem, cudaStream_t stream) {
-  auto kernel = tracker_kernel<NR, NS, kStaged, kSeq>;
+           const State& fin, const Params& prm, int B, size_t smem, uint8_t* scratch,
+           cudaStream_t stream) {
+  auto kernel = tracker_kernel<NR, NS, kStaged, kSeq, kMem>;
   // the dynamic size, with the static arrays, may pass the default 48 KB
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, 32, smem, stream>>>(ins, st0, has_init, o, fin, prm);
+  kernel<<<B, 32, smem, stream>>>(ins, st0, has_init, o, fin, prm, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NR, int NS>
+template <int NR, int NS, bool kMem>
 int launch_mode(bool staged, bool seq, const Inputs& ins, const State& st0, bool has_init,
                 const Outputs& o, const State& fin, const Params& prm, int B,
-                size_t smem, cudaStream_t stream) {
+                size_t smem, uint8_t* scratch, cudaStream_t stream) {
   if (seq) {
-    return staged ? launch<NR, NS, true, true>(ins, st0, has_init, o, fin, prm, B, smem, stream)
-                  : launch<NR, NS, false, true>(ins, st0, has_init, o, fin, prm, B, 0, stream);
+    return staged ? launch<NR, NS, true, true, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream)
+                  : launch<NR, NS, false, true, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream);
   }
-  return staged ? launch<NR, NS, true, false>(ins, st0, has_init, o, fin, prm, B, smem, stream)
-                : launch<NR, NS, false, false>(ins, st0, has_init, o, fin, prm, B, 0, stream);
+  return staged ? launch<NR, NS, true, false, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream)
+                : launch<NR, NS, false, false, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream);
+}
+
+// the register geometry's static shared bytes: 16 words a row and 4 a
+// slot, and a few words of the memory geometry's arrays
+long long static_smem(int nr, int ns) {
+  return 4LL * (16 * 32 * nr + 16) + 16LL * 32 * ns;
+}
+
+// the current device's shared memory a block, opted in
+int smem_optin() {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return optin;
 }
 
 }  // namespace
 
-// Rows a lane for capacity C (2, 4 or 8; 0 past 256), slots a lane for
-// S (1 or 2; 0 past 64), and whether a stage of frames (at least one)
-// fits in `smem_optin` bytes of dynamic shared memory next to the static
-// arrays, with its size.
+// The kernel's geometry at J candidates, capacity C and S slots on a card
+// with `smem_optin` bytes of shared memory a block: rows and slots a lane
+// (`nr`, `ns`), where they lie (`memory`: 0 registers for C <= 256 and
+// S <= 64; past either, 1 a region in dynamic shared memory, 2 a region
+// of global scratch a symbol, `region` bytes), whether a stage of frames
+// (at least one) fits in shared memory beside them (`staged`), and the
+// dynamic shared bytes (`smem`).
 extern "C" void tracker_plan(int J, int C, int S, int smem_optin, int* nr, int* ns,
-                             int* staged, long long* smem) {
-  *nr = C <= 64 ? 2 : (C <= 128 ? 4 : (C <= 256 ? 8 : 0));
-  *ns = S <= 32 ? 1 : (S <= 64 ? 2 : 0);
-  // static arrays: 16 words a row (8 words, two int4) and 4 words a slot
-  const long long fixed = 4LL * (16 * 32 * *nr + 4) + 16LL * 32 * *ns;
-  *smem = static_cast<long long>(dynamic_smem(J));
-  *staged = fixed + *smem <= smem_optin;
+                             int* memory, long long* region, int* staged, long long* smem) {
+  const long long ring = static_cast<long long>(dynamic_smem(J));
+  if (C <= 256 && S <= 64) {
+    *nr = C <= 64 ? 2 : (C <= 128 ? 4 : 8);
+    *ns = S <= 32 ? 1 : 2;
+    *memory = 0;
+    *region = 0;
+    *staged = static_smem(*nr, *ns) + ring <= smem_optin;
+    *smem = *staged ? ring : 0;
+    return;
+  }
+  *nr = (C + 31) / 32;
+  *ns = (S + 31) / 32;
+  *region = region_bytes(32LL * *nr, 32LL * *ns);
+  const long long fixed = 1024;   // the static arrays at one entry each
+  if (fixed + *region + ring <= smem_optin) {
+    *memory = 1; *staged = 1; *smem = *region + ring;
+  } else if (fixed + *region <= smem_optin) {
+    *memory = 1; *staged = 0; *smem = *region;
+  } else {
+    *memory = 2; *staged = fixed + ring <= smem_optin; *smem = *staged ? ring : 0;
+  }
+}
+
+// The global scratch a symbol that tracker_launch needs on the current
+// device at J candidates, capacity C and S slots: the region where
+// tracker_plan puts it in global memory, else 0.
+extern "C" long long tracker_scratch_bytes(int J, int C, int S) {
+  int nr, ns, memory, staged;
+  long long region, smem;
+  tracker_plan(J, C, S, smem_optin(), &nr, &ns, &memory, &region, &staged, &smem);
+  return memory == 2 ? region : 0;
 }
 
 // in: 4 pointers (period, power, fft, valid). init: 12 pointers in
 // TrackerState order (seen_now unused), or null for a fresh start.
 // out: 11 pointers in the order of Outputs. fin: 12 pointers in
 // TrackerState order. `sequential`: the reference-exact matcher (kSeq),
-// else the vectorized one. Returns a cudaError_t code: a shared-memory
-// size the card cannot give, or a refused launch, is returned, never
-// skipped.
+// else the vectorized one. `scratch`: `scratch_bytes` of global memory,
+// at least B * region where tracker_plan names memory 2, else unused.
+// Returns a cudaError_t code: a scratch too small, a shared-memory size
+// the card cannot give, or a refused launch, is returned, never skipped.
 extern "C" int tracker_launch(void* const* in, void* const* init,
                               void* const* out, void* const* fin, int sequential, int B,
                               int T, int J, int C, int S, float tol,
                               int max_inactive, float leak_pr, float leak_wr,
-                              int leak_min, int leak_max, void* stream) {
+                              int leak_min, int leak_max, void* scratch,
+                              long long scratch_bytes, void* stream) {
   if (C < 1 || S < 1 || J < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  int nr, ns, staged;
-  long long smem;
-  tracker_plan(J, C, S, optin, &nr, &ns, &staged, &smem);
-  if (nr == 0 || ns == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int nr, ns, memory, staged;
+  long long region, smem;
+  tracker_plan(J, C, S, smem_optin(), &nr, &ns, &memory, &region, &staged, &smem);
+  if (memory == 2 && (scratch == nullptr || scratch_bytes < B * region)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B == 0) return 0;
   Inputs ins{static_cast<const float*>(in[0]), static_cast<const float*>(in[1]),
              static_cast<const int32_t*>(in[2]), static_cast<const uint8_t*>(in[3])};
@@ -864,17 +1211,19 @@ extern "C" int tracker_launch(void* const* in, void* const* init,
             static_cast<float*>(out[8]), static_cast<int32_t*>(out[9]),
             static_cast<int32_t*>(out[10])};
   Params prm{T, J, C, S, frames_per_stage(J), tol, leak_pr, leak_wr,
-             max_inactive, leak_min, leak_max};
+             max_inactive, leak_min, leak_max, nr, ns, memory == 1, region};
   const State fn = state_from(fin);
   const bool hi = init != nullptr, sq = sequential != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
+  uint8_t* scr = static_cast<uint8_t*>(scratch);
+  if (memory) return launch_mode<1, 1, true>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
   switch (nr * 10 + ns) {
-    case 21: return launch_mode<2, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 22: return launch_mode<2, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 41: return launch_mode<4, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 42: return launch_mode<4, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
-    case 81: return launch_mode<8, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
-    default: return launch_mode<8, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, st);
+    case 21: return launch_mode<2, 1, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 22: return launch_mode<2, 2, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 41: return launch_mode<4, 1, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 42: return launch_mode<4, 2, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 81: return launch_mode<8, 1, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    default: return launch_mode<8, 2, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
   }
 }

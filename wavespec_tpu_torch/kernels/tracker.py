@@ -6,8 +6,8 @@ vectorized matcher) and, in its sequential mode (B4s), the XLA scan of
 `track_frames_kernel(periods, powers, fft_idx, valid, cfg, init)` takes
 candidates ``[..., T, J]`` (float32, float32, int32, bool, contiguous)
 and returns what `analyze.trackers.track_frames_plain` returns, bitwise
-equal to it, for either matcher (`cfg.sequential_match`). Its
-`launches` counts the vectorized mode's launches and
+equal to it, for either matcher (`cfg.sequential_match`) at any capacity
+and slot count. Its `launches` counts the vectorized mode's launches and
 `sequential_mode.launches` the sequential mode's. A CPU tensor goes to
 the plain version; a CUDA tensor goes to the kernel, with no fallback.
 """
@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -23,39 +24,72 @@ from wavespec_tpu_torch.analyze.trackers import (
     SLOT_FIELDS, TrackerConfig, TrackerState, init_state, track_frames_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
 
-MAX_CAPACITY = 256   # 8 capacity rows a lane in registers
-MAX_SLOTS = 64       # 2 slots a lane
+# The register geometry's thresholds (8 capacity rows and 2 slots a lane
+# in registers); past either, the kernel's memory geometry takes over.
+MAX_CAPACITY = 256
+MAX_SLOTS = 64
 _SMEM_OPTIN = 227 * 1024
 _STAGE_BYTES = 24 * 1024
 _MAX_FRAMES = 16
 
 
+class TrackerPlan(NamedTuple):
+    """The kernel's geometry (`csrc/tracker.cu::tracker_plan`)."""
+
+    rows: int        # capacity rows a lane
+    slots: int       # slots a lane
+    frames: int      # frames a stage of the candidate ring, 0: read from global memory
+    smem: int        # dynamic shared bytes
+    memory: str      # where the rows and slots lie: registers, shared or global
+    region: int      # bytes of the memory geometry's region a symbol (0 in registers)
+
+
+def _region_bytes(cp: int, sp: int) -> int:
+    n = (16 + 16 + 8) * cp + 4 * (cp + 4) + 11 * 4 * cp + 3 * cp + 8 * 4 * sp + sp
+    return (n + 15) & ~15
+
+
 def launch_plan(j: int, c: int, s: int, smem_optin: int = _SMEM_OPTIN,
-                sequential: bool = False):
-    """(rows a lane, slots a lane, frames a stage or 0 where the kernel
-    reads the candidates from global memory, dynamic shared bytes) of the
-    kernel at J candidates, capacity c and s slots, as `csrc/tracker.cu::
-    tracker_plan` computes them on a card with `smem_optin` bytes of
-    shared memory a block; the sequential mode (`sequential`) takes the
-    same geometry and limits. Raises ValueError past `MAX_CAPACITY` or
-    `MAX_SLOTS`; J has no limit."""
-    if not (1 <= c <= MAX_CAPACITY and 1 <= s <= MAX_SLOTS and j >= 1):
-        matcher = "sequential" if sequential else "vectorized"
-        raise ValueError(f"capacity {c}, slots {s}, candidates {j}, {matcher} matcher: "
-                         f"the tracker kernel takes capacity 1..{MAX_CAPACITY} (8 rows a lane) and "
-                         f"1..{MAX_SLOTS} slots (2 a lane)")
-    nr = 2 if c <= 64 else (4 if c <= 128 else 8)
-    ns = 1 if s <= 32 else 2
+                sequential: bool = False) -> TrackerPlan:
+    """The kernel's geometry at J candidates, capacity c and s slots on a
+    card with `smem_optin` bytes of shared memory a block, as
+    `csrc/tracker.cu::tracker_plan` computes it; the sequential mode
+    (`sequential`) takes the same geometry. Up to `MAX_CAPACITY` rows and
+    `MAX_SLOTS` slots the rows lie in registers (2, 4 or 8 a lane) and the
+    slots too (1 or 2 a lane); past either, every row and slot lies in a
+    region of ceil(c / 32) rows and ceil(s / 32) slots a lane, in dynamic
+    shared memory where it fits beside the candidate ring, else in global
+    scratch a symbol. Frames a stage fall from 16 to one as J grows, and to
+    0 (candidates read from global memory) where one frame's do not fit.
+    Every c, s and j >= 1 has a geometry; below 1 raises ValueError. The
+    wrapper sizes its scratch from the library's own plan
+    (`tracker_scratch_bytes`); this one serves checks without a card."""
+    del sequential   # the same geometry for both matchers
+    if min(j, c, s) < 1:
+        raise ValueError(f"capacity {c}, slots {s}, candidates {j}: the tracker kernel takes "
+                         f"each >= 1")
     frames = min(max(_STAGE_BYTES // (13 * j), 1), _MAX_FRAMES)
-    smem = 2 * (3 * frames * j + (frames * j + 7) // 4 + 1) * 4
-    fixed = 4 * (16 * 32 * nr + 4) + 16 * 32 * ns
-    staged = fixed + smem <= smem_optin
-    return nr, ns, frames if staged else 0, smem if staged else 0
+    ring = 2 * (3 * frames * j + (frames * j + 7) // 4 + 1) * 4
+    if c <= MAX_CAPACITY and s <= MAX_SLOTS:
+        nr = 2 if c <= 64 else (4 if c <= 128 else 8)
+        ns = 1 if s <= 32 else 2
+        staged = 4 * (16 * 32 * nr + 16) + 16 * 32 * ns + ring <= smem_optin
+        return TrackerPlan(nr, ns, frames if staged else 0, ring if staged else 0,
+                           "registers", 0)
+    nr, ns = -(-c // 32), -(-s // 32)
+    region = _region_bytes(32 * nr, 32 * ns)
+    fixed = 1024
+    if fixed + region + ring <= smem_optin:
+        return TrackerPlan(nr, ns, frames, region + ring, "shared", region)
+    if fixed + region <= smem_optin:
+        return TrackerPlan(nr, ns, 0, region, "shared", region)
+    staged = fixed + ring <= smem_optin
+    return TrackerPlan(nr, ns, frames if staged else 0, ring if staged else 0, "global", region)
 
 
 def check_config(cfg: TrackerConfig) -> None:
-    """Raise ValueError, naming the limit, where the kernel cannot take
-    `cfg`'s capacity or slot count (either matcher)."""
+    """Raise ValueError where the kernel cannot take `cfg`'s capacity or
+    slot count (either matcher): only below 1."""
     launch_plan(1, cfg.capacity, cfg.n_slots, sequential=cfg.sequential_match)
 
 _OUT_DTYPES = {"slot_period": torch.float32, "slot_power": torch.float32,
@@ -73,8 +107,11 @@ def _lib() -> ctypes.CDLL:
     fn = lib.tracker_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.tracker_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.tracker_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -131,13 +168,18 @@ def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
     final = state_like()
     if b and t_frames:
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = _lib().tracker_launch(
+            lib = _lib()
+            # the memory geometry's regions, where the card's plan puts them
+            # in global memory
+            scratch = torch.empty(b * lib.tracker_scratch_bytes(j, c, s), dtype=torch.uint8,
+                                  device=dev)
+            status = lib.tracker_launch(
                 _ptrs((periods, powers, fft_idx, valid)), init_arg,
                 _ptrs([outs[k] for k in SLOT_FIELDS]), _ptrs(final), int(cfg.sequential_match),
                 b, t_frames, j, c, s, cfg.tolerance_pct, cfg.max_inactive,
                 cfg.leak_period_ratio, cfg.leak_power_ratio, cfg.leak_min_bars,
-                cfg.leak_max_bars, stream)
+                cfg.leak_max_bars, scratch.data_ptr() if scratch.numel() else None,
+                scratch.numel(), torch.cuda.current_stream().cuda_stream)
         check(status, "tracker_launch")
         (sequential_mode if cfg.sequential_match else track_frames_kernel).launches += 1
     else:

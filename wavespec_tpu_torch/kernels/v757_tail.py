@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,15 +20,50 @@ from wavespec_tpu_torch.pipeline.tail import (TAIL_FIELDS, V757TailState,
                                               ring_capacity, v757_tail_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
 
-MAX_SLOTS = 64   # two slots a lane of the walking warp
+# The register geometry's threshold (two slots a lane of the walking
+# warp); past it the wide geometry keeps the slots' state in a region.
+MAX_SLOTS = 64
+_SMEM_OPTIN = 227 * 1024
+_CHUNK_BYTES = 40 * 1024
+_MAX_FRAMES = 32
 
 
 def slots_per_lane(s: int) -> int:
-    """Slots a lane of the kernel's walking warp takes at `s` slots (1 or
-    2). Raises ValueError past `MAX_SLOTS`."""
-    if not 1 <= s <= MAX_SLOTS:
-        raise ValueError(f"{s} slots: the tail kernel takes 1..{MAX_SLOTS} slots (2 a lane)")
-    return 1 if s <= 32 else 2
+    """Slots a lane of the kernel's walking warp takes at `s` slots:
+    ceil(s / 32), in registers up to `MAX_SLOTS` (1 or 2), past it in the
+    wide geometry's region. Raises ValueError below 1 slot."""
+    if s < 1:
+        raise ValueError(f"{s} slots: the tail kernel takes 1 slot or more")
+    return -(-s // 32)
+
+
+class TailPlan(NamedTuple):
+    """The kernel's geometry (`csrc/v757_tail.cu::v757_tail_plan`)."""
+
+    slots: int    # slots a lane
+    frames: int   # frames a chunk
+    memory: str   # where the slot state lies: registers, shared or global
+    region: int   # bytes of the wide geometry's region a symbol (0 in registers)
+    smem: int     # dynamic shared bytes
+
+
+def tail_plan(s: int, cap: int, smem_optin: int = _SMEM_OPTIN) -> TailPlan:
+    """The kernel's geometry at `s` slots and a lag ring of `cap` rows:
+    up to `MAX_SLOTS` slots in registers (the lag ring, the work arrays and
+    two stages of inputs in dynamic shared memory); past it the lag ring,
+    the work arrays and 22 state words a slot in one region, in dynamic
+    shared memory where it fits, else in global scratch a symbol. The
+    wrapper sizes its scratch from the library's own plan
+    (`v757_tail_scratch_bytes`); this one serves checks without a card."""
+    ns = slots_per_lane(s)
+    f = min(max(_CHUNK_BYTES // (4 * (8 * s + 2 * (1 + 2 * s)) + 2 * s), 1), _MAX_FRAMES)
+    if s <= MAX_SLOTS:
+        stage = f + 2 * f * s + (f * s + 7) // 4 + 1
+        return TailPlan(ns, f, "registers", 0, (cap * s + 8 * f * s + 2 * stage) * 4)
+    region = 4 * (cap * s + 8 * f * s + 22 * 32 * ns)
+    if region + 1024 <= smem_optin:
+        return TailPlan(ns, f, "shared", region, region)
+    return TailPlan(ns, f, "global", region, 0)
 
 
 class _Params(ctypes.Structure):
@@ -55,8 +91,11 @@ def _lib() -> ctypes.CDLL:
     # (no contraction into fused multiply-adds).
     lib = load_library("v757_tail", ("--fmad=false",))
     fn = lib.v757_tail_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.v757_tail_scratch_bytes.argtypes = [ctypes.c_int] * 2
+    lib.v757_tail_scratch_bytes.restype = ctypes.c_longlong
     if lib.v757_tail_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError("TailParams layout differs between csrc/v757_tail.cu and Python")
     return lib
@@ -155,11 +194,16 @@ def v757_tail(newest: torch.Tensor, price_prev: torch.Tensor, periods: torch.Ten
     if b:
         prm = _params(cfg, hop, t_frames, s)
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            status = _lib().v757_tail_launch(
+            lib = _lib()
+            # the wide geometry's regions, where the card's plan puts them
+            # in global memory
+            scratch = torch.empty(b * lib.v757_tail_scratch_bytes(s, cap), dtype=torch.uint8,
+                                  device=dev)
+            status = lib.v757_tail_launch(
                 _ptrs((newest, price_prev, periods, valid, gd_slot)), init_arg,
-                _ptrs([outs[k] for k in TAIL_FIELDS]), _ptrs(final),
-                ctypes.byref(prm), b, stream)
+                _ptrs([outs[k] for k in TAIL_FIELDS]), _ptrs(final), ctypes.byref(prm), b,
+                scratch.data_ptr() if scratch.numel() else None, scratch.numel(),
+                torch.cuda.current_stream().cuda_stream)
         check(status, "v757_tail_launch")
         v757_tail.launches += 1
     if not cfg.enable_kalman:

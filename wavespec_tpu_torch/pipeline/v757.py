@@ -350,7 +350,9 @@ def _v757_batch(series: torch.Tensor, cfg: V757Config, hop: int) -> dict:
 
 def check_card_limits(cfg: V757Config) -> None:
     """Raise ValueError, naming the limit, where kernel B4 (either
-    matcher) or B5 cannot take `cfg` on the card."""
+    matcher) or B5 cannot take `cfg` on the card: only a capacity or a
+    slot count below 1 (past 256 rows or 64 slots the kernels keep their
+    state in shared or global memory)."""
     from wavespec_tpu_torch.kernels.tracker import check_config
     from wavespec_tpu_torch.kernels.v757_tail import slots_per_lane
 
