@@ -56,8 +56,13 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
      and its bound;
    - K1 Kalman weights (`check_kalman_weights`) bitwise against its plain
      version at `kalman_wave_model(4096, 1)`'s [1, 20000, 8] and at a
-     fleet's [128, 2048, 8], and at every layout of the kernel (k up to
-     9000), timed with its bound and its chain's latency floor;
+     fleet's [128, 2048, 8], with the series-frames that took IEEE
+     division counted, and at every plan of the kernel (each geometry in
+     registers with and without padding, k up to 9000), timed with its
+     bound and its chain's latency floor (reasoned, in the log only);
+     K1's division (a shared reciprocal) bitwise against `/` on 2^24
+     random pairs, the edge values' pairs and every pair of the preset's
+     run;
    - B4s, the tracker kernel's sequential mode (`check_sequential_tracker`),
      bitwise against the plain sequential matcher on the reference-exact
      mode's candidates at 4 symbols x 64 frames x 149 candidates, capacity
@@ -1202,17 +1207,17 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
 
 
 # Dependent-chain latency floors of K1 and B4s, counted from their sources
-# and their SASS at the usual Hopper latencies (FP32 add, multiply,
-# compare and select 4 cycles, an IEEE float32 division ~50: MUFU.RCP,
-# five dependent FFMA and the range check; a shuffle and its add ~27, a
-# redux.sync ~30, a ballot and its select ~6). K1's frame is its p chain:
-# p + q, (h h) p, its select, the innovation's tree, + r, the gate, the
-# division, the gain's select, gain h, 1 - x, x p, the floor: ~95 cycles
-# at one lane a series and one element a lane, 27 more a shuffle level
-# (log2 of the lanes a series) and 50 more each further element a lane
-# (its division waits for the one before). K1's floor is the frames of
+# and their SASS at the usual Hopper latencies (FP32 add, multiply, FMA,
+# max, compare and select 4 cycles, MUFU.RCP ~18, a shuffle and its add
+# ~27, a redux.sync ~30, a ballot and its select ~6). K1's frame is its p
+# chain: p + q (4), (h h) p (4), the innovation's tree, + r (4), the shared
+# reciprocal (MUFU.RCP and two FMAs, 26), the quotient's three FMAs (12),
+# gain h, 1 - x, x p (12) and the floor (one max.NaN, 4): 66 cycles, 4 more
+# a register level of the trees (log2 of the elements a lane) and 27 more a
+# shuffle level (log2 of the lanes a series). The residual's tree, w's
+# update and the range check run beside it. K1's floor is the frames of
 # one series times these, at the card's largest SM clock.
-K1_STEP_CYCLES, K1_SHUFFLE_CYCLES, K1_ELEMENT_CYCLES = 95, 27, 50
+K1_STEP_CYCLES, K1_REGISTER_CYCLES, K1_SHUFFLE_CYCLES = 66, 4, 27
 # B4s, `csrc/tracker.cu` mode kSeq. In the register geometry (`seq_run`)
 # a candidate step over the slots in use is a row's cost (~30; the
 # rows run side by side), the lane's least (~8), a redux, the least uid
@@ -1249,15 +1254,62 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def division_edges() -> tuple[torch.Tensor, torch.Tensor]:
+    """Every pair of edge values of float32 (signed zeros, subnormals, the
+    smallest and largest normals, 1e-9, the range check's bounds 2^-60 and
+    2^60 and their neighbours, infinities, NaN), as dividends and
+    divisors."""
+    f32 = np.float32
+    tiny, big, sub = np.finfo(f32).tiny, np.finfo(f32).max, np.finfo(f32).smallest_subnormal
+    base = [0.0, sub, 2 * sub, tiny - sub, tiny, 2 * tiny, 1e-9, 1.0, 9.0, big / 2, big,
+            np.inf, np.nan]
+    for e in (-60, 60):
+        x = f32(2.0 ** e)
+        base += [x, np.nextafter(x, f32(0)), np.nextafter(x, f32(np.inf))]
+    vals = np.array(base, dtype=f32)
+    vals = np.concatenate([vals, -vals])
+    a, b = np.meshgrid(vals, vals, indexing="ij")
+    return torch.from_numpy(a.ravel().copy()), torch.from_numpy(b.ravel().copy())
+
+
+def check_k1_division(dev, pairs) -> str:
+    """K1's division (`kernels.kalman_weights.divide`: the shared
+    reciprocal where its range check passes, else IEEE) bitwise against
+    PyTorch's `/` on the card, on each named set of (dividends, divisors);
+    a NaN matches a NaN. Raises on a difference; returns what it held."""
+    from wavespec_tpu_torch.kernels import kalman_weights as kk
+
+    said = []
+    for name, (a, b) in pairs.items():
+        a, b = a.to(dev).contiguous(), b.to(dev).contiguous()
+        q, took = kk.divide(a, b)
+        want = a / b
+        same = (q.view(torch.int32) == want.view(torch.int32)) | (q.isnan() & want.isnan())
+        if not bool(same.all()):
+            i = int((~same).nonzero()[0])
+            raise AssertionError(
+                f"K1 division, {name}: {int((~same).sum())} of {a.numel()} quotients differ "
+                f"from `/`, first {float(a[i])!r} / {float(b[i])!r}: {float(q[i])!r} against "
+                f"{float(want[i])!r}")
+        said.append(f"{name} {a.numel()} ({int(took.sum())} on IEEE division)")
+    return "; ".join(said)
+
+
 def check_kalman_weights(dev, tag) -> dict:
     """K1 against its plain version on the card at its main path's shape,
     `kalman_wave_model(4096, 1)`'s basis and closes on 24,095 bars
     ([1, 20000, 8]), and at a fleet's, shape (c)'s `bench_series` at 128
     symbols x 2048 frames ([128, 2048, 8]): bitwise on the blend and the
-    final weights; then every layout of the kernel (k = 1, 3, 16, 40, 207
-    and 256 in registers; 300, 1100 and 9000 a warp a series with the
-    state in global memory) on random inputs, bitwise. Timed: kernel (median of 5 runs of 5 calls) and plain version
-    (one call) at both shapes. Returns the record at the preset's shape."""
+    final weights, with the series-frames whose quotients took IEEE
+    division counted; then, on random inputs, bitwise, every plan that
+    `launch_plan` gives in registers, with and without padding past k
+    (k = 1, 2, 3, 4, 6, 12, 16, 24, 32, 40, 64, 100, 128, 207 and 256;
+    k = 8 is the preset), and a warp a series with the state in global
+    memory (k = 300, 1100 and 9000). K1's division is held bitwise to `/`
+    on 2^24 random pairs, the edge values' pairs and every (p h,
+    innovation) pair of the preset's run, which its plain version records.
+    Timed: kernel (median of 5 runs of 5 calls) and plain version (one
+    call) at both shapes. Returns the record at the preset's shape."""
     import importlib
 
     from wavespec_tpu_torch.filters.kalman_weights import (KalmanWeightsConfig,
@@ -1269,51 +1321,73 @@ def check_kalman_weights(dev, tag) -> dict:
     wcfg = kw.KalmanWaveConfig(window=WINDOW, top_k=8, min_period=18.0, max_period=200.0)
     clock = sm_clock_hz()
 
-    def held(basis, z, label):
-        got = kk.kalman_weights_kernel(basis, z, cfg)
-        ref, plain_ms = timed_once(lambda: kalman_weights_filter_plain(basis, z, cfg))
+    def held(basis, z, label, divisions=None):
+        exact = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = kk.kalman_weights_kernel(basis, z, cfg, exact_frames=exact)
+        ref, plain_ms = timed_once(lambda: kalman_weights_filter_plain(basis, z, cfg, divisions))
         bad = [name for name, g, r in zip(("blend", "weights"), got, ref)
                if not (torch.equal(g, r) and torch.isfinite(g).all())]
         if bad:
             raise AssertionError(f"K1 kalman_weights {label}: {bad} differ from plain")
-        return got, plain_ms
+        return got, plain_ms, int(exact.item())
 
     rec = None
+    rng = np.random.default_rng(SEED)
+    # 2^24 random pairs: random signs and mantissas, exponents over the
+    # range check's [-60, 60] and a little past it, divisors positive as
+    # K1's innovations are, and a sixteenth with a negative divisor
+    n = 1 << 24
+    a = (rng.uniform(1.0, 2.0, n) * np.exp2(rng.integers(-64, 65, n))
+         * rng.choice([-1.0, 1.0], n))
+    b = (rng.uniform(1.0, 2.0, n) * np.exp2(rng.integers(-64, 65, n))
+         * np.where(rng.random(n) < 1 / 16, -1.0, 1.0))
+    pairs = {"random": (torch.from_numpy(a.astype(np.float32)),
+                        torch.from_numpy(b.astype(np.float32))),
+             "edges": division_edges()}
     for label, x in (("preset", planted_series(WINDOW + 19999, SEED + 20)[None]),
                      ("fleet", bench_series(128, 2048))):
         xs = torch.from_numpy(x).to(dev)
         basis = kw.kalman_wave(xs, wcfg)[2].contiguous()
         z = xs[:, WINDOW - 1:].contiguous()
-        (out, w), plain_ms = held(basis, z, label)
+        divisions = [] if rec is None else None
+        (out, w), plain_ms, exact = held(basis, z, label, divisions)
         b, t, k = basis.shape
         ms = cuda_ms(lambda: kk.kalman_weights_kernel(basis, z, cfg), per_run=5)
         plan = kk.launch_plan(k, b)
         # the function's operations: ~16 an element a frame (the products,
         # the division, the update, the three sums' adds)
         bnd = bound(nbytes(basis, z, out, w), 16 * b * t * k)
-        cycles = (K1_STEP_CYCLES + K1_SHUFFLE_CYCLES * (plan.lanes.bit_length() - 1)
-                  + K1_ELEMENT_CYCLES * (plan.elements - 1))
+        cycles = (K1_STEP_CYCLES + K1_REGISTER_CYCLES * (plan.elements.bit_length() - 1)
+                  + K1_SHUFFLE_CYCLES * (plan.lanes.bit_length() - 1))
         floor_ms = t * cycles / clock * 1e3
         log(f"K1 kalman_weights {label} {tuple(basis.shape)} (lanes a series {plan.lanes}, "
             f"elements a lane {plan.elements}, series a block {plan.series}, frames a stage "
-            f"{plan.frames}): bitwise equal to plain on the blend and the final "
-            f"weights; kernel {ms:.4f} ms ({1e6 * ms / t:.1f} ns a frame), plain {plain_ms:.1f} ms "
-            f"(one call), bound {bnd[0]:.5f} ms ({bnd[1]}), chain latency floor {floor_ms:.4f} ms "
-            f"({t} dependent frames at {clock / 1e9:.3f} GHz); no PyTorch call computes it {tag}")
+            f"{plan.frames}): bitwise equal to plain on the blend and the final weights, "
+            f"{exact} series-frames of {b * t} on IEEE division; kernel {ms:.4f} ms "
+            f"({1e6 * ms / t:.1f} ns a frame), plain {plain_ms:.1f} ms (one call), bound "
+            f"{bnd[0]:.5f} ms ({bnd[1]}), chain latency floor {floor_ms:.4f} ms ({t} dependent "
+            f"frames at {clock / 1e9:.3f} GHz, {cycles} cycles a frame); no PyTorch call "
+            f"computes it {tag}")
         if rec is None:
-            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd,
-                       floor_ms=floor_ms)
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd)
+            nums = torch.stack([n for n, _ in divisions], -2)
+            dens = torch.stack([d for _, d in divisions], -1)[..., None].expand_as(nums)
+            pairs["preset run"] = (nums.reshape(-1), dens.reshape(-1))
+            del nums, dens, divisions
         del xs, basis, z
-    rng = np.random.default_rng(SEED)
-    for k, b, t in ((1, 3, 300), (3, 33, 300), (16, 5, 300), (40, 5, 300), (207, 3, 300),
-                    (256, 2, 200), (300, 2, 100), (1100, 2, 50), (9000, 2, 20)):
+    log(f"K1 division bitwise equal to `/` on the card: {check_k1_division(dev, pairs)}")
+    for k, b, t in ((1, 3, 300), (2, 5, 300), (3, 33, 300), (4, 9, 300), (6, 5, 300),
+                    (12, 5, 300), (16, 5, 300), (24, 3, 300), (32, 3, 300), (40, 5, 300),
+                    (64, 2, 300), (100, 3, 300), (128, 2, 300), (207, 3, 300), (256, 2, 200),
+                    (300, 2, 100), (1100, 2, 50), (9000, 2, 20)):
         h = (0.5 * rng.standard_normal((b, t, k))).astype(np.float32)
         z = (h.sum(-1) + 0.1 * rng.standard_normal((b, t)) + 50.0).astype(np.float32)
         held(torch.from_numpy(h).to(dev), torch.from_numpy(z).to(dev), f"k={k}")
         plan = kk.launch_plan(k, b)
         where = "registers" if plan.lanes else "global memory"
+        pad = ", padded" if plan.lanes and plan.lanes * plan.elements > k else ""
         log(f"K1 kalman_weights [{b}, {t}, {k}]: bitwise equal to plain (state in {where}, "
-            f"lanes a series {plan.lanes or 32})")
+            f"lanes a series {plan.lanes or 32}, elements a lane {plan.elements}{pad})")
     return rec
 
 
@@ -1468,8 +1542,7 @@ def check_sequential_tracker(dev, tag) -> dict:
     wide = [torch.from_numpy(a).to(dev) for a in tracker_stream(2, 9000, SEED + 9, (1,), spread=True)]
     held(wide, TrackerConfig(capacity=64, sequential_match=True), "J = 9000 (global memory)",
          plain_on="cpu")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd,
-                floor_ms=floor_ms)
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=bnd)
 
 
 def device_ops(fn, calls: int) -> float:
@@ -4146,8 +4219,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": f"wavespec_tpu_torch/csrc/{src}.cu",
             "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
-            **({"floor_ms": r["floor_ms"]} if "floor_ms" in r else {})})
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     log(f"kernel launches over every main path: {launches}")
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -57,11 +57,14 @@ def filter_constants(cfg: KalmanWeightsConfig) -> tuple[float, float, float]:
 
 
 def kalman_weights_filter_plain(basis: torch.Tensor, measurements: torch.Tensor,
-                                cfg: KalmanWeightsConfig = KalmanWeightsConfig()):
+                                cfg: KalmanWeightsConfig = KalmanWeightsConfig(),
+                                divisions: list | None = None):
     """The plain version of K1: the JAX package's scan as a loop over
     frames, in float64 for float64 inputs and float32 otherwise. basis
     ``[..., t, k]``, measurements ``[..., t]``; returns (blended ``[...,
-    t]``, final weights ``[..., k]``)."""
+    t]``, final weights ``[..., k]``). Where `divisions` is a list, each
+    frame appends the pair it divides: dividends p h ``[..., k]`` and
+    their divisor, the innovation ``[...]``."""
     q, r, p0 = filter_constants(cfg)
     dtype = torch.float64 if basis.dtype == torch.float64 else torch.float32
     h_all = basis.to(dtype)
@@ -78,7 +81,10 @@ def kalman_weights_filter_plain(basis: torch.Tensor, measurements: torch.Tensor,
             residual = z - tree_sum(h * w)
             innovation = r + tree_sum(h * h * p)
             innovation = torch.where(innovation < 1e-9, r, innovation)
-            gain = p * h / innovation[..., None]
+            num = p * h
+            if divisions is not None:
+                divisions.append((num, innovation))
+            gain = num / innovation[..., None]
             w = w + gain * residual[..., None]
             p = torch.clamp((1.0 - gain * h) * p, min=1e-9)
             out[..., i] = tree_sum(w * h)
