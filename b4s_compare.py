@@ -11,7 +11,7 @@ sequential, B, T, J, C, S, tol, max_inactive, leak_pr, leak_wr,
 leak_min, leak_max, scratch, stream)`). Both sources are
 built with nvcc (`--fmad=false`, as the wrapper builds them). At the
 reference-exact mode's candidates (every in-band bin of [18, 52], 12
-slots) of `chip_smoke.bench_series(128, 512)`:
+slots) of `wavespec_tpu_torch.bench.bench_series(128, 512)`:
 - window 4096 (J = 149), capacity 256 (rows in registers), 300 (rows in
   shared memory) and 3000 (rows in global scratch);
 - window 16384 (J = 595), capacity 1024 (rows in shared memory);
@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import statistics
 import subprocess
 import sys
@@ -39,19 +38,6 @@ sys.path.insert(0, str(ROOT))
 # (label, window, capacity)
 CASES = (("(i) C=256", 4096, 256), ("(i) C=300", 4096, 300), ("(i) C=3000", 4096, 3000),
          ("(i16k) C=1024", 16384, 1024))
-
-
-def build(src: Path) -> ctypes.CDLL:
-    from wavespec_tpu_torch.kernels import _build
-    flags = _build.BASE_FLAGS + ("--fmad=false",)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"lib{src.stem}-compare-{digest}.so"
-    proc = subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out))
 
 
 class Build:
@@ -99,21 +85,6 @@ class Build:
         return outs, final
 
 
-def cuda_ms(fn, runs: int = 5, per_run: int = 2) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_run):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_run)
-    return statistics.median(times)
-
-
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True, type=Path)
@@ -121,11 +92,13 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("b4s_compare: no CUDA device")
-    from chip_smoke import bench_series
     from wavespec_tpu_torch import V757Config
     from wavespec_tpu_torch.analyze.trackers import TrackerConfig
+    from wavespec_tpu_torch.bench import bench_series
     from wavespec_tpu_torch.kernels import tracker as kt
+    from wavespec_tpu_torch.kernels._build import build_source
     from wavespec_tpu_torch.pipeline import v757 as pv
+    from wavespec_tpu_torch.utils.timing import cuda_ms
 
     lines: list[str] = []
 
@@ -136,8 +109,9 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(card)
-    new = Build(build(ROOT / "wavespec_tpu_torch" / "csrc" / "tracker.cu"))
-    old = Build(build(args.old))
+    new = Build(build_source(ROOT / "wavespec_tpu_torch" / "csrc" / "tracker.cu",
+                             ("--fmad=false",))[0])
+    old = Build(build_source(args.old, ("--fmad=false",))[0])
     dev = torch.device("cuda", 0)
     cand_of = {}
     for label, window, cap in CASES:
@@ -156,7 +130,7 @@ def main() -> None:
         times = {"old": [], "new": []}
         for who in ("old", "new", "new", "old"):
             fn = old if who == "old" else new
-            times[who].append(cuda_ms(lambda: fn(cand, cfg)))
+            times[who].append(cuda_ms(lambda: fn(cand, cfg), per_run=2, warmup=1))
         b, t, j = cand[0].shape
         plan = kt.launch_plan(j, cap, cfg.n_slots, sequential=True)
         med = {k: statistics.median(v) for k, v in times.items()}

@@ -83,8 +83,8 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    shape (a) and the first 8 symbols of shape (c) against the same port
    on the CPU (at (c) at most 2 slots may take another tracker, each only
    from a frame where the two devices' candidate lists differ, a float32
-   ranking of near-equal band powers), and times windows/s and sym*bars/s (median
-   of 5);
+   ranking of near-equal band powers), and times the MUSIC steps' windows/s
+   (median of 5; (c)'s sym*bars/s is `bench`'s v7.57 line, phase 8 (n));
 5. drives the extraction entry point's other branches, each a main path
    of its own with the counts reset before and read after
    (`extraction_methods`): the golden fixture's FFT-ridge attrs, FFT
@@ -147,9 +147,13 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    to the sync call (ms in submit against ms waiting), a template job
    bitwise equal to `run_pipeline`, and the tick builder on 100,000
    ticks; (n) `cli.main` `extract` (its cache byte-equal to
-   `BatchFetcher`'s), `v757 --csv` and `inspect`. Every B1-B5 and H1 call
-   of the recorded runs (not the 500,000-bar one) is held against its
-   plain version as in phase 7;
+   `BatchFetcher`'s), `v757 --csv`, `inspect` and `bench` (the
+   throughput harness `wavespec_tpu_torch.bench` at its four cells, full
+   size: `bench.py`'s metric names in its order, the hopped ridge last,
+   each value finite and above 0, the lines and the command's seconds
+   logged). Every B1-B5 and H1 call of the recorded runs (not the
+   500,000-bar one, not `bench`'s) is held against its plain version as
+   in phase 7;
 9. drives the multi-device forms (`mesh_phase`) on a virtual mesh of
    eight entries over the card, each path a main path of its own with the
    counts reset before and read after: (o) `pipeline_step_sharded` at the
@@ -173,7 +177,9 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    as many entries; with one card a line says so;
 10. prints one JSON line with every kernel's record (launches summed over
    every main path; B4's two modes, `tracker` and `tracker_sequential`,
-   each with its own count), then, last, ``{"ok": true, "device": {...}}``.
+   each with its own count; `bench_launches` the part of that sum made by
+   `bench`'s chains, which varies with the gate's attempts), then, last,
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line. There is no
 CPU path: without a CUDA device the script exits with an error.
@@ -192,6 +198,9 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from wavespec_tpu_torch.bench import bench_series, planted_period
+from wavespec_tpu_torch.utils.timing import cuda_ms, graph_ms
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -213,41 +222,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, runs: int = 5, per_run: int = 1, warmup: int = 2) -> float:
-    """Median over `runs` of the milliseconds per call of `fn()`, each run
-    timing `per_run` back-to-back calls between two CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_run):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_run)
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls: int = 10) -> float:
-    """Device milliseconds per call of `fn()`: `calls` back-to-back calls
-    captured in one CUDA graph, replayed as `cuda_ms` times it, so that the
-    host's preparation of a call (the wrapper's Python) is not timed."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay, per_run=3) / calls
-
-
 def planted_series(n: int, seed: int) -> np.ndarray:
     """Random walk around 100 plus cycles of period 50 and 120."""
     rng = np.random.default_rng(seed)
@@ -255,21 +229,6 @@ def planted_series(n: int, seed: int) -> np.ndarray:
     x = (100.0 + np.cumsum(0.05 * rng.standard_normal(n))
          + 3.0 * np.sin(2 * np.pi * t / 50) + 2.0 * np.sin(2 * np.pi * t / 120))
     return x.astype(np.float32)
-
-
-def bench_series(n_sym: int, n_frames: int, window: int = WINDOW) -> np.ndarray:
-    """`bench.py`'s v7.57 series (`_measure_v757`): per symbol a random walk
-    around 100 plus one cycle of period `planted_period(b)`."""
-    n = window + n_frames - 1
-    t = np.arange(n)
-    rng = np.random.default_rng(0)
-    return np.stack([100.0 + np.cumsum(0.01 * rng.standard_normal(n))
-                     + 1.5 * np.sin(2 * np.pi * t / planted_period(b))
-                     for b in range(n_sym)]).astype(np.float32)
-
-
-def planted_period(b: int) -> int:
-    return 20 + (b % 5) * 6
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -3160,17 +3119,27 @@ def bridge_on_card(dev, tag, path_launches) -> dict:
     return rec
 
 
+# The kernels `bench`'s four workloads run: MUSIC (B1, B2, seeds from H1
+# at hop 64), v7.57 (B3, B4, B5), the framed ridge (B3), the hopped (H1).
+BENCH_PATH = ("jacobi_eigh", "music_select", "hopped_dft", "band_dft", "tracker", "v757_tail")
+
+
 def cli_in_process(dev, tag, path_launches) -> dict:
     """(n) `cli.main` in process: `extract` (flagship defaults, hop 1) on a
     FeedCache `.bin` of 24,095 planted bars, its cycle cache byte-equal to
     `BatchFetcher`'s on the same bars; `v757 --csv` on 4,607 bars (512
-    frames); `inspect` on both files. Each command's B1-B5 calls held
-    against their plain versions."""
+    frames); `inspect` on both files; each command's B1-B5 calls held
+    against their plain versions. Then `bench` (`wavespec_tpu_torch.bench`,
+    its four cells at full size): a line a cell with the table's metric
+    names in its order, the hopped ridge last, each value finite and above
+    0 and its spread printed; its kernel calls are not recorded (thousands,
+    at the shapes of phases 2, 4 and 5, which hold them)."""
     import contextlib
     import io
+    import math
     import tempfile
 
-    from wavespec_tpu_torch import ExtractConfig, ReconstructConfig, cli
+    from wavespec_tpu_torch import ExtractConfig, ReconstructConfig, bench, cli
     from wavespec_tpu_torch.pipeline import BatchFetcher
     from wavespec_tpu_torch.runtime import save_feed_cache
 
@@ -3231,6 +3200,25 @@ def cli_in_process(dev, tag, path_launches) -> dict:
         f"{rec['extract_ms']:.0f} ms with recording (host clock)")
     log(f"(n) cli v757 --csv on {V757_CLI_BARS} bars: {v7}, {len(states) - 1} state rows; "
         f"inspect: {info[0]}, {info[1]}")
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = path_launches("(n) cli bench", lambda: cli.main(["bench", *device_args]),
+                           BENCH_PATH)
+    rec["bench_s"] = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in buf.getvalue().strip().splitlines()]
+    metrics = [c.metric for c in bench.CELLS]
+    if (rc != 0 or [ln.get("metric") for ln in lines] != metrics
+            or metrics[-1] != "4096pt_rfft_spectrum_topk_windows_per_sec_per_chip"
+            or not all(math.isfinite(ln["value"]) and ln["value"] > 0 and "spread_pct" in ln
+                       for ln in lines)):
+        raise AssertionError(f"(n) cli bench returned {rc}, printed {lines}")
+    rec["bench"] = lines
+    for ln in lines:
+        log(f"(n) cli bench: {json.dumps(ln)}")
+    log(f"(n) cli bench: four lines in bench.py's order, the hopped ridge last, "
+        f"{rec['bench_s']:.1f} s for the command (host clock) {tag}")
     return rec
 
 
@@ -4179,9 +4167,6 @@ def main() -> None:
     log(f"shape (a) step on both seed routes, in turns: hopped DFT "
         f"{', '.join(f'{m:.3f}' for m in seeds_ms['hopped'])} ms, cuFFT over the frames "
         f"{', '.join(f'{m:.3f}' for m in seeds_ms['framed'])} ms (median of 5 each) {tag}")
-    ms = cuda_ms(lambda: run_v757_batch(xc, vcfg), warmup=1)
-    log(f"shape (c) run_v757_batch {b_c} symbols x {t_c} frames, window {WINDOW}: "
-        f"{ms:.3f} ms per call, {b_c * t_c / (ms / 1e3):.1f} sym*bars/s (median of 5) {tag}")
 
     # ---- 5. the extraction methods, each a main path of its own ----
     methods = extraction_methods(dev, tag, counters, reset_counts)
@@ -4199,6 +4184,7 @@ def main() -> None:
                  *mesh["launches"].values()):
         for k, n in path.items():
             launches[k] = launches.get(k, 0) + n
+    bench_launches = host["launches"]["(n) cli bench"]
 
     # ---- 10. the kernel records ----
     sources = {
@@ -4217,7 +4203,10 @@ def main() -> None:
         src = "tracker" if name == "tracker_sequential" else name
         records.append({
             "name": name, "route": "cuda", "source": f"wavespec_tpu_torch/csrc/{src}.cu",
-            "replaces": replaces, "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "replaces": replaces, "launches": launches[name],
+            # the part of `launches` made by `cli bench`'s timed chains, whose
+            # count follows the gate's attempts and so varies from run to run
+            "bench_launches": bench_launches.get(name, 0), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     log(f"kernel launches over every main path: {launches}")

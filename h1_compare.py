@@ -25,8 +25,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
-import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -50,49 +48,6 @@ def series(n: int, seed: int) -> np.ndarray:
             + 2.0 * np.sin(2 * np.pi * t / 120)).astype(np.float32)
 
 
-def cuda_ms(fn, runs: int = 5, per_run: int = 3) -> float:
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_run):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_run)
-    return statistics.median(times)
-
-
-def graph_ms(fn, calls: int = 10) -> float:
-    """Device ms a call: `calls` calls captured in one CUDA graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    return cuda_ms(graph.replay) / calls
-
-
-def build(src: Path, extra: tuple[str, ...] = ()) -> tuple[ctypes.CDLL, str]:
-    from wavespec_tpu_torch.kernels import _build
-    flags = _build.BASE_FLAGS + extra
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"lib{src.stem}-compare-{digest}.so"
-    proc = subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
-
-
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest distance in float32 ulps between two float32 tensors."""
     def ordered(t):
@@ -109,7 +64,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("h1_compare: no CUDA device")
     from wavespec_tpu_torch.kernels import hopped_dft as kh
+    from wavespec_tpu_torch.kernels._build import build_source
     from wavespec_tpu_torch.ops.spectrum import twiddle_table
+    from wavespec_tpu_torch.utils.timing import graph_ms
 
     lines: list[str] = []
 
@@ -120,9 +77,10 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(card)
-    _, report = build(ROOT / "wavespec_tpu_torch" / "csrc" / "hopped_dft.cu", ("-Xptxas", "-v"))
+    _, report = build_source(ROOT / "wavespec_tpu_torch" / "csrc" / "hopped_dft.cu",
+                             ("-Xptxas", "-v"))
     log("ptxas -v, csrc/hopped_dft.cu:\n" + report.strip())
-    old, _ = build(args.old)
+    old, _ = build_source(args.old)
     fn = old.hopped_dft_launch
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])

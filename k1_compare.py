@@ -14,7 +14,7 @@ are built with nvcc (`--fmad=false`, as the wrapper builds them; the
 current one also with `-Xptxas -v`, whose report it prints). The current
 kernel runs with `launch_plan(k, b)`, at
 - (j): `kalman_wave_model(4096, 1)`'s basis and closes, 1 x 20,000 x 8;
-- the fleet: `chip_smoke.bench_series(128, 2048)`'s, 128 x 2048 x 8;
+- the fleet: `wavespec_tpu_torch.bench.bench_series(128, 2048)`'s, 128 x 2048 x 8;
 - k = 16, 32, 40, 100 and 207 on random inputs (8 x 2048 frames);
 the two builds' blends and final weights are compared bitwise, the
 series-frames that took IEEE division are counted, and each build is
@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import statistics
 import subprocess
 import sys
@@ -38,20 +37,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
-
-
-def build(src: Path, verbose: bool = False) -> tuple[ctypes.CDLL, str]:
-    """The library built from `src`, and ptxas's report where `verbose`."""
-    from wavespec_tpu_torch.kernels import _build
-    flags = _build.BASE_FLAGS + ("--fmad=false",) + (("-Xptxas", "-v") if verbose else ())
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = _build.BUILD_DIR / f"lib{src.stem}-compare-{digest}.so"
-    proc = subprocess.run([_build._nvcc(), *flags, "-o", str(out), str(src)],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(str(out)), proc.stdout + proc.stderr
 
 
 def old_plan(k: int, b: int):
@@ -98,26 +83,12 @@ class Build:
         return out, w
 
 
-def cuda_ms(fn, runs: int = 5, per_run: int = 2) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_run):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_run)
-    return statistics.median(times)
-
-
 def cases(dev):
     """(label, basis, closes) on the card."""
     import importlib
 
-    from chip_smoke import SEED, WINDOW, bench_series, planted_series
+    from chip_smoke import SEED, WINDOW, planted_series
+    from wavespec_tpu_torch.bench import bench_series
     kw = importlib.import_module("wavespec_tpu_torch.filters.kalman_wave")
     wcfg = kw.KalmanWaveConfig(window=WINDOW, top_k=8, min_period=18.0, max_period=200.0)
     for label, x in (("(j)", planted_series(WINDOW + 19999, SEED + 20)[None]),
@@ -133,6 +104,8 @@ def cases(dev):
 
 def main() -> None:
     from wavespec_tpu_torch.kernels import kalman_weights as kk
+    from wavespec_tpu_torch.kernels._build import build_source
+    from wavespec_tpu_torch.utils.timing import cuda_ms
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", required=True, type=Path)
@@ -149,10 +122,11 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     log(card)
-    new_lib, report = build(ROOT / "wavespec_tpu_torch" / "csrc" / "kalman_weights.cu", True)
+    new_lib, report = build_source(ROOT / "wavespec_tpu_torch" / "csrc" / "kalman_weights.cu",
+                                   ("--fmad=false", "-Xptxas", "-v"))
     log("ptxas: " + " | ".join(ln.strip() for ln in report.splitlines()
                                if "registers" in ln or "spill" in ln.lower()))
-    new, old = Build(new_lib), Build(build(args.old)[0])
+    new, old = Build(new_lib), Build(build_source(args.old, ("--fmad=false",))[0])
     dev = torch.device("cuda", 0)
     failed = False
     for label, basis, z in cases(dev):
@@ -167,7 +141,7 @@ def main() -> None:
         times = {"old": [], "new": []}
         for who in ("old", "new", "new", "old"):
             times[who].append(cuda_ms(lambda: old(basis, z, plan_old) if who == "old"
-                                      else new(basis, z, plan)))
+                                      else new(basis, z, plan), per_run=2, warmup=1))
         med = {k_: statistics.median(v) for k_, v in times.items()}
         log(f"K1 {label} {tuple(basis.shape)} new (lanes {plan.lanes}, elements "
             f"{plan.elements}, series a block {plan.series}, frames a stage {plan.frames}) "

@@ -12,17 +12,22 @@ windows, the v7.57 analytics (`run_v757_batch`) at (c) 128 symbols x
 512 frames, window 4096, on the framed route and (g) the sliding one, a
 one-bar tick of `V757OnlineDriver` at (h) 128 and 1024 symbols (the
 default branch: framed at 128, sliding at 1024; at 1024 also the framed
-branch; after 201 frames), FFT ridge at `bench.py`'s framed cell (d)
-(window 4096, top_k 8, band [18, 200], hop 16, 4096 windows), and ESPRIT
-and AUTO at the flagship configuration (f) (hop 64, 512 windows). Per
-shape it warms the step up, times `repeats`
-untraced steps on the host clock around a synchronised step, then traces
-one step with `torch.profiler` and prints: the untraced step times and
-their median, the device kernel time of the traced step, the device's
-busy share (kernel time over the untraced median), the number of kernels
-launched, the peak device memory, the device time of each hand-written
-kernel, and the operators with the most device time. With `--out`, the
-profiler's full tables are written to that file.
+branch; after 201 frames), the FFT ridge at `bench`'s ridge cells (window
+4096, top_k 8, band [18, 200], hop 16): (d) 4096 windows on the hopped
+route (kernel H1, the default) and on the framed one (B3), (e) 16,384
+windows on the hopped route; ESPRIT and AUTO at the flagship
+configuration (f) (hop 64, 512 windows); the reference-exact mode (all
+in-band bins, the sequential matcher B4s) at (i) 128 x 512, window 4096,
+capacity 256, and (i16k) window 16384, capacity 1024; and (j)
+`kalman_wave_model(4096, 1)` on 20,000 frames (B3 and K1). Per shape it
+warms the step up, times `repeats` untraced steps on the host clock
+around a synchronised step, then traces one step with `torch.profiler`
+and prints: the untraced step times and their median, the device kernel
+time of the traced step, the device's busy share (kernel time over the
+untraced median), the number of kernels launched, the peak device
+memory, the device time of each hand-written kernel, and the operators
+with the most device time. With `--out`, the profiler's full tables are
+written to that file. (i16k) takes about a minute of the run.
 """
 
 from __future__ import annotations
@@ -32,15 +37,17 @@ import json
 import statistics
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
+# The hand-written kernels by their CUDA names: B1, B2, B3, B4 (B4s is
+# `tracker_kernel` too), B5, H1's two kernels, K1's two geometries.
 HAND_KERNELS = ("jacobi_eigh_kernel", "music_select_kernel", "band_dft_kernel",
-                "tracker_kernel", "v757_tail_kernel")
+                "tracker_kernel", "v757_tail_kernel", "rows_kernel", "tile_kernel",
+                "kalman_regs", "kalman_wide")
 
 
 def main() -> None:
@@ -51,12 +58,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: no CUDA device")
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (SEED, V757_FRAMES, V757_SYMBOLS, WINDOW, bench_series,
-                            planted_series)
+    from chip_smoke import SEED, V757_FRAMES, V757_SYMBOLS, WINDOW, planted_series
     import dataclasses
 
     from wavespec_tpu_torch import (ExtractConfig, Method, ReconstructConfig, V757Config,
-                                    decode_causal, extract_cycles_batch, run_v757_batch)
+                                    decode_causal, extract_cycles_batch, models,
+                                    run_v757_batch)
+    from wavespec_tpu_torch.analyze.trackers import TrackerConfig
+    from wavespec_tpu_torch.bench import bench_series
+    from wavespec_tpu_torch.utils.timing import host_ms
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -83,6 +93,18 @@ def main() -> None:
                           method=Method.FFT_RIDGE)
     xc = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES)).to(dev)
     vcfg = V757Config()
+
+    def exact_step(window, capacity):
+        """The reference-exact mode at 128 x 512 of `bench_series` at `window`."""
+        x = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES, window=window)).to(dev)
+        cfg = V757Config(window=window, n_candidates=0, sliding_spectral=True,
+                         tracker=TrackerConfig(capacity=capacity, sequential_match=True))
+        return lambda: run_v757_batch(x, cfg)
+
+    def kalman_step():
+        model = models.kalman_wave_model(WINDOW, 1)
+        x = planted_series(WINDOW + 19999, SEED + 20)
+        return lambda: model.run(x)
 
     def online_tick(n_sym, sliding_spectral=None):
         """One one-bar tick of a warmed `V757OnlineDriver` fleet, each call
@@ -112,14 +134,25 @@ def main() -> None:
                    online_tick(8 * V757_SYMBOLS)),
         "h-1024-framed": (f"V757OnlineDriver one-bar tick, framed branch, {8 * V757_SYMBOLS} "
                           f"symbols, window {WINDOW}", online_tick(8 * V757_SYMBOLS, False)),
-        "d": ("FFT ridge (framed), window 4096, top_k 8, band [18, 200], hop 16, 4096 windows",
-              extract_step(ridge, 16, 4096, SEED + 10)),
+        "d": ("FFT ridge, hopped route (H1), window 4096, top_k 8, band [18, 200], hop 16, "
+              "4096 windows", extract_step(ridge, 16, 4096, SEED + 10)),
+        "d-framed": ("FFT ridge, framed route (B3), window 4096, top_k 8, band [18, 200], "
+                     "hop 16, 4096 windows",
+                     extract_step(dataclasses.replace(ridge, use_hopped_dft=False), 16, 4096,
+                                  SEED + 10)),
+        "e": ("FFT ridge, hopped route (H1), window 4096, top_k 8, band [18, 200], hop 16, "
+              "16384 windows", extract_step(ridge, 16, 16384, SEED + 11)),
         "f-esprit": ("ESPRIT, flagship configuration, hop 64, 512 windows",
                      extract_step(dataclasses.replace(cfg, method=Method.ESPRIT), 64, 512,
                                   SEED + 14)),
         "f-auto": ("AUTO, flagship configuration, hop 64, 512 windows",
                    extract_step(dataclasses.replace(cfg, method=Method.AUTO), 64, 512,
                                 SEED + 15)),
+        "i": (f"run_v757_batch, reference-exact mode (B4s), {V757_SYMBOLS} symbols x "
+              f"{V757_FRAMES} frames, window {WINDOW}, capacity 256", exact_step(WINDOW, 256)),
+        "i16k": (f"run_v757_batch, reference-exact mode (B4s), {V757_SYMBOLS} symbols x "
+                 f"{V757_FRAMES} frames, window 16384, capacity 1024", exact_step(16384, 1024)),
+        "j": ("kalman_wave_model(4096, 1), 20000 frames", kalman_step()),
     }
 
     for name, (what, step) in shapes.items():
@@ -127,12 +160,7 @@ def main() -> None:
             step()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        walls = []
-        for _ in range(args.repeats):
-            t0 = time.perf_counter()
-            step()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
+        walls = host_ms(step, args.repeats)
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             step()

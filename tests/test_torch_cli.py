@@ -2,9 +2,9 @@
 package's, on the CPU (`--device cpu`): `extract` (the JSON summary, the
 cycle cache's name, header and periods, the per-bar CSV), `v757` (the
 summary and the states CSV), `inspect` on both cache kinds (the same
-JSON), the default device (the card: on a host without one the command
-fails, nothing runs on the CPU), and the import of the bridge and the CLI
-leaving JAX out of `sys.modules` and CUDA untouched."""
+JSON), the default device (the card: on a host without one `extract` and
+`bench` fail, nothing runs on the CPU), and the import of the bridge and
+the CLI leaving JAX out of `sys.modules` and CUDA untouched."""
 
 import json
 import struct
@@ -106,20 +106,24 @@ def test_v757_matches_jax(tmp_path, capsys):
 
 
 def test_default_device_is_the_card(tmp_path):
-    """`--device` defaults to cuda: without a card the command fails
-    before any work, it never runs on the CPU instead."""
+    """`--device` defaults to cuda: without a card `extract` and `bench`
+    fail before any work, they never run on the CPU instead."""
     feed = tmp_path / "feed.bin"
     make_feed_bin(feed, np.sin(np.arange(600) / 5.0))
     with pytest.raises((RuntimeError, AssertionError)):
         pcli.main(["extract", str(feed), "--out-dir", str(tmp_path), "--window", "256",
                    "--method", "fft_ridge"])
     assert not list(tmp_path.glob("WaveSpecZZ_cycles_*"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pcli.main(["bench"])
 
 
 def test_module_entry_imports_no_jax(tmp_path):
     """`python -m wavespec_tpu_torch inspect` in a fresh interpreter, after
     importing the bridge, the CLI, the drivers and the runtime: no JAX
-    module loaded, CUDA not initialised."""
+    module loaded, CUDA not initialised; then `bench`, which without a
+    card fails naming it, having loaded the port's harness and neither
+    JAX nor the repository's `bench.py`."""
     feed = tmp_path / "feed.bin"
     make_feed_bin(feed, np.arange(5.0))
     code = (
@@ -132,6 +136,14 @@ def test_module_entry_imports_no_jax(tmp_path):
         "    runpy.run_module('wavespec_tpu_torch', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
+        "sys.argv = ['wavespec_tpu_torch', 'bench']\n"
+        "try:\n"
+        "    runpy.run_module('wavespec_tpu_torch', run_name='__main__')\n"
+        "except RuntimeError as e:\n"
+        "    assert 'no CUDA device' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('bench ran without a card')\n"
+        "assert 'wavespec_tpu_torch.bench' in sys.modules and 'bench' not in sys.modules\n"
         "assert not any(m in ('jax', 'wavespec_tpu') or m.startswith(('jax.', 'wavespec_tpu.'))"
         " for m in sys.modules)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,

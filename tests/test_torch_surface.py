@@ -42,9 +42,6 @@ EXCEPTIONS = {
     ("kernels/__init__.py", "dft_factors"): "kept with the FFT helpers, `ops.spectrum.dft_factors`",
     ("ops/gather.py", None): "one-hot gathers for the TPU; the port indexes plainly",
     ("utils/vma.py", None): "shard_map vma plumbing; nothing to replace on one card",
-    # Waits for the port's benchmark harness.
-    ("cli.py", "cmd_bench"): "`bench` runs the TPU harness `bench.py`; the port's waits "
-                             "for a CUDA benchmark",
 }
 
 

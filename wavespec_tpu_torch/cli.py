@@ -11,10 +11,11 @@ CLI is its equivalent plus a feed-cache inspector:
              cycles, signals) and export the per-bar states CSV
              (`ExportToCSV` parity).
   inspect  — print feed/cycle cache headers and stats.
+  bench    — the throughput harness (`wavespec_tpu_torch.bench`): one JSON
+             line for each of its four workloads, the headline last.
 
-`extract` and `v757` run on `--device` (default `cuda`; `--device cpu`
-runs the kernels' plain versions on the CPU). The JAX package's `bench`
-command, which runs its TPU harness, has no counterpart here.
+`extract`, `v757` and `bench` run on `--device` (default `cuda`; `--device
+cpu` runs the kernels' plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -174,6 +175,13 @@ def cmd_inspect(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_bench(args: argparse.Namespace) -> int:
+    from wavespec_tpu_torch import bench
+
+    bench.main(args.device)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(prog="wavespec_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
@@ -225,6 +233,10 @@ def main(argv: list[str] | None = None) -> int:
     ins = sub.add_parser("inspect", help="print cache file header/stats")
     ins.add_argument("input")
     ins.set_defaults(fn=cmd_inspect)
+
+    be = sub.add_parser("bench", help="run the throughput benchmark")
+    be.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    be.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)
