@@ -66,10 +66,11 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    - B4s, the tracker kernel's sequential mode (`check_sequential_tracker`),
      bitwise against the plain sequential matcher on the reference-exact
      mode's candidates at 4 symbols x 64 frames x 149 candidates, capacity
-     256, one shot and resumed, on tie-heavy and spread streams, and past
-     the register geometry (capacity 1024 at window 16384's 595
-     candidates, capacity 3000 in global scratch), timed with its bound
-     and its chain's floor (`b4s_chain`);
+     256 (and 300 on 24 frames), one shot and resumed, on tie-heavy,
+     spread and drag-and-tie streams, and past the register geometry
+     (capacity 1024 at window 16384's 595 candidates, 2500, 3000 in global
+     scratch, and 450 rows in use), timed with its bound and its chain's
+     floor (`b4s_chain`);
 3. runs the port on the golden fixture `tests/fixtures/golden_extract.npz`
    and holds it to the recorded output;
 4. drives the two main paths, each with every launch count set to 0
@@ -114,15 +115,16 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
    (all in-band bins, the sequential matcher: B4s) at shape (c), its B4s
    and B5 calls held bitwise against their plain versions, chunked runs
    bitwise equal to one shot, the first 4 symbols card against CPU, the
-   call and the matcher timed; (i16k) the same mode at the indicator's
-   default window 16384 (595 candidates a frame), capacity 1024, likewise,
-   and the frames its outputs change on at capacity 256;
+   call and the matcher timed, and the symbol-frames past B4s's fast step
+   counted; (i16k) the same mode at the indicator's default window 16384
+   (595 candidates a frame), capacity 1024, likewise, and the frames its
+   outputs change on at capacity 256;
 7. drives the six model presets of `wavespec_tpu_torch.models` and a
    segmented template job at their published widths (`model_presets`),
    each a main path of its own with the counts reset before and read
-   after: `flagship` and `nodetrend_top8` at 20,000 windows (hop 1),
+   after: `flagship` and `nodetrend_top8` at 10,000 windows (hop 1),
    `v757()` and `preproc_core` on 4,607 bars, `kalman_wave_model` at
-   20,000 frames (B3 and K1), `wave4ea()` at window 32768 and the template
+   10,000 frames (B3 and K1), `wave4ea()` at window 32768 and the template
    job at window 65536 (segments of 16384, auto overlap 4096); checks
    outputs and planted periods, holds every B1-B5 and K1 call of one run
    of each against its plain version (B1, B2, B4, B5, K1 bitwise, B3
@@ -472,7 +474,9 @@ def check_plans(dev) -> None:
     on both sides of every threshold; and the global scratch the
     libraries ask of the wrappers on this card (`tracker_scratch_bytes`,
     `v757_tail_scratch_bytes`) equal to those plans' regions where they
-    lie in global memory, else 0."""
+    lie in global memory, else 0; and the row slots the sequential matcher
+    keeps in registers (`tracker_seq_rows`) equal to the plan's
+    `seq_rows`."""
     import ctypes
 
     from wavespec_tpu_torch.kernels import tracker as kt
@@ -487,7 +491,7 @@ def check_plans(dev) -> None:
     refs = [ctypes.byref(v) for v in i4 + q2]
     n = 0
     for j in (1, 24, 149, 595, 2458, 9000):
-        for c in (1, 64, 65, 128, 129, 256, 257, 1024, 2900, 3000, 5000):
+        for c in (1, 64, 65, 128, 129, 256, 257, 300, 320, 384, 385, 1024, 2900, 3000, 5000):
             for s in (1, 32, 33, 64, 65, 100, 2000):
                 want = kt.launch_plan(j, c, s)
                 lt.tracker_plan(j, c, s, optin, refs[0], refs[1], refs[2], refs[4], refs[3],
@@ -501,6 +505,10 @@ def check_plans(dev) -> None:
                 scratch = lt.tracker_scratch_bytes(j, c, s)
                 if scratch != (want.region if want.memory == "global" else 0):
                     raise AssertionError(f"tracker scratch at J={j} C={c} S={s}: {scratch}")
+                if lt.tracker_seq_rows(j, c, s) != want.seq_rows:
+                    raise AssertionError(f"tracker sequential register rows at J={j} C={c} "
+                                         f"S={s}: library {lt.tracker_seq_rows(j, c, s)}, "
+                                         f"wrapper {want.seq_rows}")
                 n += 1
     for s in (1, 32, 33, 64, 65, 100, 700, 2000):
         for cap in (2, 16, 64, 200):
@@ -1177,21 +1185,21 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
 # update and the range check run beside it. K1's floor is the frames of
 # one series times these, at the card's largest SM clock.
 K1_STEP_CYCLES, K1_REGISTER_CYCLES, K1_SHUFFLE_CYCLES = 66, 4, 27
-# B4s, `csrc/tracker.cu` mode kSeq. In the register geometry (`seq_run`)
-# a candidate step over the slots in use is a row's cost (~30; the
-# rows run side by side), the lane's least (~8), a redux, the least uid
-# (~12), a redux, a ballot a slot and the update (~10): ~150 cycles at
-# the 2 slots (64 rows) the reference-exact mode keeps. In the memory
-# geometry (`seq_run_mem`) a step is a row's cost (~30; the slots' loads
-# and costs run side by side), the lane's running least (cost, uid) a
-# slot in use (a compare, an equality, their join and three selects, each
-# slot after the one before: ~8 cycles a slot), a redux, the least uid's
-# select (~4), a redux, a ballot and its select (~6) and the owner's
-# update (~10): ~110 cycles and 8 a slot in use. Slots, leaks and the
-# frame's start are left out. The floor is the largest over symbols of
+# B4s, `csrc/tracker.cu` mode kSeq. Where the slots in use
+# are in registers (`seq_fast<U>`; at most `TrackerPlan.seq_rows`), a
+# common step's chain is the lane's least over U slots (a tree: 4 a
+# level), a redux (~30), the compare with kBig (4), the hit bits (a
+# compare and a select, 8; an or tree, 4 a level), a ballot (~6), the
+# rare test (two logic ops and the branch, ~12), the owner's slot (ffs
+# and a select, ~12) and the patched cost (a compare and a select, 8):
+# 80 cycles and 8 a level of the two trees (ceil(log2 U)); the next
+# candidate's costs run beside it. Past those slots, or in a frame not
+# sure of its tie rule (`seq_general`: the chain over the region), a
+# step is ~110 cycles and ~8 a slot in use. Slots, leaks and the frame's
+# start and end are left out. The floor is the largest over symbols of
 # these summed over the frames, with the slots in use at each frame's
 # start, at the card's largest SM clock.
-B4S_STEP_CYCLES, B4S_MEM_STEP_CYCLES, B4S_SLOT_CYCLES = 150, 110, 8
+B4S_STEP_CYCLES, B4S_LEVEL_CYCLES, B4S_MEM_STEP_CYCLES, B4S_SLOT_CYCLES = 80, 8, 110, 8
 
 
 def sm_clock_hz() -> float:
@@ -1371,26 +1379,28 @@ def b4s_chain(cand, tcfg) -> dict:
     rows. Returns the row frames alive at the frames' starts (`alive`, the
     work the bound counts), the rows alive at most (`alive_max`), the rows
     a frame touches (`seen_now`: mean and largest) and the chain's floor
-    in cycles (`cycles`, the largest over symbols): `B4S_STEP_CYCLES` a
-    valid candidate in the register geometry; in the memory geometry
-    `B4S_MEM_STEP_CYCLES` and `B4S_SLOT_CYCLES` a slot of 32 rows in use
-    (up to the last alive row) at the frame's start."""
+    in cycles (`cycles`, the largest over symbols): a valid candidate costs
+    `B4S_STEP_CYCLES` and `B4S_LEVEL_CYCLES` a level of ceil(log2 u), u
+    the slots of 32 rows in use (up to the last alive row) at the frame's
+    start, where u is at most the plan's `seq_rows`; past it
+    `B4S_MEM_STEP_CYCLES` and `B4S_SLOT_CYCLES` a slot in use."""
     from wavespec_tpu_torch.kernels import tracker as kt
 
     b, t, j = cand[0].shape
-    mem = kt.launch_plan(j, tcfg.capacity, tcfg.n_slots, sequential=True).memory != "registers"
+    in_regs = kt.launch_plan(j, tcfg.capacity, tcfg.n_slots, sequential=True).seq_rows
     cycles = torch.zeros(b, dtype=torch.float64, device=cand[0].device)
     rows = torch.arange(tcfg.capacity, device=cand[0].device)
     alive, alive_max, touched, state = 0, 0, [], None
     for f in range(t):
         frame = [x[:, f:f + 1].contiguous() for x in cand]
         ok = frame[3][:, 0] & (frame[0][:, 0] > 0)
-        step = torch.full_like(cycles, B4S_MEM_STEP_CYCLES if mem else B4S_STEP_CYCLES)
+        used = torch.ones_like(cycles)
         if state is not None:
             alive += int(state.alive.sum())
-            if mem:
-                last = torch.where(state.alive, rows, -1).amax(-1)
-                step += B4S_SLOT_CYCLES * torch.div(last + 32, 32, rounding_mode="floor")
+            last = torch.where(state.alive, rows, -1).amax(-1)
+            used = torch.div(last + 32, 32, rounding_mode="floor").clamp(min=1).double()
+        fast = B4S_STEP_CYCLES + B4S_LEVEL_CYCLES * torch.ceil(torch.log2(used))
+        step = torch.where(used <= in_regs, fast, B4S_MEM_STEP_CYCLES + B4S_SLOT_CYCLES * used)
         cycles += ok.sum(-1) * step
         state = kt.track_frames_kernel(*frame, tcfg, init=state)[1]
         alive_max = max(alive_max, int(state.alive.sum(-1).max()))
@@ -1400,20 +1410,36 @@ def b4s_chain(cand, tcfg) -> dict:
                 touched_max=int(touched.max()), cycles=float(cycles.max()))
 
 
+def b4s_general_frames(cand, tcfg) -> int:
+    """The symbol-frames of one B4s call on `cand` whose steps left the
+    fast step (`seq_fast`: a frame not sure of its tie rule, or more row
+    slots in use than the plan keeps in registers): 0 at (i) and (i16k)."""
+    from wavespec_tpu_torch.kernels import tracker as kt
+
+    general = torch.zeros(1, dtype=torch.int32, device=cand[0].device)
+    kt.track_frames_kernel(*cand, tcfg, general_frames=general)
+    return int(general)
+
+
 def check_sequential_tracker(dev, tag) -> dict:
     """B4s, the tracker kernel's sequential mode, against `track_frames_plain`
     with `sequential_match=True` on the card: at the reference-exact mode's
     candidates (every in-band bin, J = 149 at window 4096) of 4 symbols x 64
     frames of `bench_series`, capacity 256, bitwise in every output and the
     final state, one shot and resumed from a split inside a stage of
-    frames; then on tie-heavy and spread streams at (J, C, S) = (7, 16, 1),
-    (41, 65, 33), (149, 256, 12), likewise; past the register geometry, at
+    frames, and on their first 24 frames at capacity 300 (the rows in a
+    region, the first 10 slots of them in registers through the steps);
+    then on tie-heavy and spread streams at (J, C, S) = (7, 16, 1),
+    (41, 65, 33), (149, 256, 12), and on `testing.drag_tie_stream` (rows
+    dragged across the band, costs tied within and across lanes) at
+    capacity 256 and 300, likewise; past the register geometry, at
     the reference-exact candidates of window 16384 (J = 595) of 2 symbols x
     24 frames at capacity 1024 (its region in shared memory) and on a
     spread stream at capacity 2500 (its region in shared memory, no room
     for the candidate ring) and 3000 (its region in global scratch), and a
-    stream of 300 periods beyond each other's tolerance at capacity 600
-    (a frame touches ~300 rows, ten slots of rows in use); and at
+    stream of 450 periods beyond each other's tolerance at capacity 600
+    (a frame touches ~450 rows: 12 slots in registers, the rest read from
+    the region); and at
     J = 9000 (candidates read from global memory) against the plain
     version on the CPU (the same function, a loop of 18,000 candidate
     steps). Timed: kernel (median of 5 runs of 5 calls), plain version
@@ -1424,7 +1450,7 @@ def check_sequential_tracker(dev, tag) -> dict:
                                                      track_frames_plain)
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.pipeline import v757 as pv
-    from wavespec_tpu_torch.testing import tracker_stream
+    from wavespec_tpu_torch.testing import drag_tie_stream, tracker_stream
 
     def held(cand, tcfg, label, plain_on=None):
         out, state = kt.track_frames_kernel(*cand, tcfg)
@@ -1448,7 +1474,8 @@ def check_sequential_tracker(dev, tag) -> dict:
             raise AssertionError(f"B4s tracker_sequential {label}: {bad} differ")
         plan = kt.launch_plan(cand[0].shape[-1], tcfg.capacity, tcfg.n_slots, sequential=True)
         log(f"B4s tracker_sequential {label} {tuple(cand[0].shape)}, C={tcfg.capacity} "
-            f"S={tcfg.n_slots} (rows in {plan.memory}, {plan.rows} a lane): bitwise equal to "
+            f"S={tcfg.n_slots} (rows in {plan.memory}, {plan.rows} a lane, {plan.seq_rows} of them "
+            f"in registers through the steps): bitwise equal to "
             f"plain{' (on the CPU)' if plain_on else ''} on "
             f"the 11 outputs and the final state, resumed at frame {cut} equal to one shot "
             f"({int((state_p.uid > 0).sum(-1).max())} rows in use at most, "
@@ -1477,12 +1504,20 @@ def check_sequential_tracker(dev, tag) -> dict:
         f"chain latency floor {floor_ms:.4f} ms ({t * j} dependent candidate steps); rows "
         f"touched a frame {chain['touched_mean']:.1f} on average, {chain['touched_max']} at most; "
         f"no PyTorch call computes it {tag}")
+    # capacity 300: the same candidates' first 24 frames, the rows in a
+    # region and the first 10 slots of them in registers through the steps
+    held([c[:, :24].contiguous() for c in cand], TrackerConfig(capacity=300, sequential_match=True),
+         "reference-exact candidates")
     for jj, cc, ss, kind in ((7, 16, 1, "ties"), (41, 65, 33, "spread"), (149, 256, 12, "spread")):
         stream = [torch.from_numpy(a).to(dev) for a in
                   tracker_stream(40, jj, SEED + jj + cc, (4,), ties=kind == "ties",
                                  spread=kind == "spread")]
         held(stream, TrackerConfig(capacity=cc, n_slots=ss, sequential_match=True),
              f"{kind} stream")
+    # rows dragged across the band, costs tied within a lane and across lanes
+    drag = [torch.from_numpy(a).to(dev) for a in drag_tie_stream(24, SEED + 17, (2,))]
+    for cap in (256, 300):
+        held(drag, TrackerConfig(capacity=cap, sequential_match=True), "drag-and-tie stream")
     # past the register geometry: window 16384's candidates at capacity
     # 1024 (24 frames: the plain loop's 595 steps a frame), and a capacity
     # whose region passes shared memory
@@ -1495,8 +1530,9 @@ def check_sequential_tracker(dev, tag) -> dict:
                                                                   spread=True)]
     for cap in (2500, 3000):   # the region in shared memory beside no ring; in global scratch
         held(stream, TrackerConfig(capacity=cap, sequential_match=True), "spread stream")
-    # a frame touching ~300 rows (ten slots of rows in use)
-    held([torch.from_numpy(a).to(dev) for a in geometric_stream(6, 300, SEED + 300)],
+    # a frame touching ~450 rows (15 slots of rows in use: 12 in registers,
+    # the rest read from the region)
+    held([torch.from_numpy(a).to(dev) for a in geometric_stream(4, 450, SEED + 300)],
          TrackerConfig(capacity=600, sequential_match=True), "geometric stream")
     wide = [torch.from_numpy(a).to(dev) for a in tracker_stream(2, 9000, SEED + 9, (1,), spread=True)]
     held(wide, TrackerConfig(capacity=64, sequential_match=True), "J = 9000 (global memory)",
@@ -2037,6 +2073,7 @@ def reference_exact(dev, tag, counters, reset_counts) -> dict:
     spectral = pv._spectral_frames(x, exact, 1)
     cand = spectral[:4]
     match_ms = cuda_ms(lambda: track_frames(*cand, exact.tracker), per_run=5)
+    general = b4s_general_frames(cand, exact.tracker)
     # chunked: the matcher and the tail (B4s, B5) over three runs of frames
     # of one spectral stage, each resumed from the last one's states. The
     # spectral stage is not run in chunks: the sliding route's unpinned
@@ -2073,7 +2110,8 @@ def reference_exact(dev, tag, counters, reset_counts) -> dict:
         f"the matcher alone {match_ms:.4f} ms ({1e6 * match_ms / (t * j):.1f} ns a candidate "
         f"step; median of 5 runs), chain latency floor {floor_ms:.4f} ms; rows alive at most "
         f"{chain['alive_max']}, touched a frame {chain['touched_mean']:.1f} on average and "
-        f"{chain['touched_max']} at most {tag}")
+        f"{chain['touched_max']} at most; symbol-frames past B4s's fast step {general} of "
+        f"{V757_SYMBOLS * t} {tag}")
     if bad:
         raise AssertionError(f"(i) reference-exact mode, card vs CPU: {bad}")
     return launches
@@ -2167,6 +2205,7 @@ def reference_exact_16k(dev, tag, counters, reset_counts) -> dict:
     spectral = pv._spectral_frames(x, exact, 1)
     cand = spectral[:4]
     match_ms = cuda_ms(lambda: track_frames(*cand, exact.tracker))
+    general = b4s_general_frames(cand, exact.tracker)
     t, j = cand[0].shape[-2:]
     newest, price_prev = pv._frame_prices(x, exact, 1, t)
     one = pv._slots_and_tail(spectral, newest, price_prev, exact, 1, return_state=True)
@@ -2229,7 +2268,8 @@ def reference_exact_16k(dev, tag, counters, reset_counts) -> dict:
         f"capacity 256 the outputs change on {int(changed.sum())} of {changed.numel()} symbol "
         f"frames (first at frame {first}); run_v757_batch {ms:.3f} ms a call, the matcher "
         f"alone {match_ms:.4f} ms ({1e6 * match_ms / (t * j):.1f} ns a candidate step; median "
-        f"of 5), chain latency floor {floor_ms:.4f} ms {tag}")
+        f"of 5), chain latency floor {floor_ms:.4f} ms; symbol-frames past B4s's fast step "
+        f"{general} of {V757_SYMBOLS * t} {tag}")
     if bad:
         raise AssertionError(f"(i16k) reference-exact mode, card vs CPU: {bad}")
     return launches
@@ -2469,14 +2509,19 @@ def preset_card_vs_cpu(name, make, x: np.ndarray, method=None, vcfg=None) -> str
     return what
 
 
+# the windows (frames) of the hop-1 presets' series: their depth (the
+# window is their width), sized to the script's time limit
+PRESET_WINDOWS = 10_000
+
+
 def model_presets(dev, tag, counters, reset_counts) -> dict:
     """The six model presets of `wavespec_tpu_torch.models` on the card at
     their published widths, and the segmented template job; each call a
     main path of its own with every launch count set to 0 just before and
     read just after (returned per call):
-    - `flagship(window=4096, hop=1)` on 24,095 bars (20,000 windows),
-      `nodetrend_top8(4096, 1)` and `kalman_wave_model(4096, 1)` on the
-      same series; `v757()` at its defaults (hop 1) and `preproc_core(4096)`
+    - `flagship(window=4096, hop=1)` on `PRESET_WINDOWS` (10,000)
+      windows, `nodetrend_top8(4096, 1)` and `kalman_wave_model(4096, 1)`
+      on the same series; `v757()` at its defaults (hop 1) and `preproc_core(4096)`
       on one series of 4,607 bars (512 frames); `wave4ea()` at its default
       preset (window 32768, MUSIC, ar_order 16, band [2, 4096]) on 40,000
       bars; and the template job of `build_wave_preset_template(
@@ -2498,7 +2543,7 @@ def model_presets(dev, tag, counters, reset_counts) -> dict:
 
     launches = {}
     path_launches = _path_launches(launches, counters, reset_counts)
-    long_x = planted_series(WINDOW + 19999, SEED + 20)
+    long_x = planted_series(WINDOW + PRESET_WINDOWS - 1, SEED + 20)
     short_x = planted_series(WINDOW + 511, SEED + 21)
     template = build_wave_preset_template(
         segment_len=16384, overlap=-1, mix_mode=0, top_cycles=6, min_period=9,
@@ -3783,6 +3828,7 @@ def main() -> None:
         return "share of the limit used: " + ", ".join(f"{k} {u:.3f}" for k, u in top)
 
     # ---- 1. device and build ----
+    phase_s = [("1", time.perf_counter())]   # (phase, its start)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -3948,6 +3994,7 @@ def main() -> None:
         return rec
 
     # ---- 2. kernels against their plain versions, at their main paths' shapes ----
+    phase_s.append(("2", time.perf_counter()))
     timed, extra_a, b2_times = {}, {}, {}
     max_abs = {"jacobi_eigh": 0.0, "music_select": 0.0}
     cfg8 = dataclasses.replace(cfg, top_k=8)
@@ -4023,6 +4070,7 @@ def main() -> None:
     kernel_times["kalman_weights"] = check_kalman_weights(dev, tag)
     kernel_times["tracker_sequential"] = check_sequential_tracker(dev, tag)
     # ---- 3. golden fixture ----
+    phase_s.append(("3", time.perf_counter()))
     data = np.load(ROOT / "tests" / "fixtures" / "golden_extract.npz")
     gcfg = ExtractConfig(window=1024, top_k=2, min_period=10.0, max_period=200.0,
                          method=Method.MUSIC, ar_order=10)
@@ -4037,6 +4085,7 @@ def main() -> None:
         + readings(gattrs.cpu().numpy(), data["attrs_mus"]))
 
     # ---- 4. the main paths ----
+    phase_s.append(("4", time.perf_counter()))
     def step(x, hop, step_cfg=cfg):
         attrs = extract_cycles_batch(x, step_cfg, hop=hop)
         dec = decode_causal(attrs, rcfg)
@@ -4169,15 +4218,20 @@ def main() -> None:
         f"{', '.join(f'{m:.3f}' for m in seeds_ms['framed'])} ms (median of 5 each) {tag}")
 
     # ---- 5. the extraction methods, each a main path of its own ----
+    phase_s.append(("5", time.perf_counter()))
     methods = extraction_methods(dev, tag, counters, reset_counts)
     check_auto_near_tie(dev, tag)
     # ---- 6. the live v7.57 path, each a main path of its own ----
+    phase_s.append(("6", time.perf_counter()))
     live = live_v757(dev, tag, counters, reset_counts)
     # ---- 7. the model presets, each a main path of its own ----
+    phase_s.append(("7", time.perf_counter()))
     presets = model_presets(dev, tag, counters, reset_counts)
     # ---- 8. the host surface, each a main path of its own ----
+    phase_s.append(("8", time.perf_counter()))
     host = host_surface(dev, tag, counters, reset_counts)
     # ---- 9. the mesh, each path a main path of its own ----
+    phase_s.append(("9", time.perf_counter()))
     mesh = mesh_phase(dev, tag, counters, reset_counts)
     for path in (*methods["launches"].values(), *live["launches"].values(),
                  *presets["launches"].values(), *host["launches"].values(),
@@ -4187,6 +4241,7 @@ def main() -> None:
     bench_launches = host["launches"]["(n) cli bench"]
 
     # ---- 10. the kernel records ----
+    phase_s.append(("10", time.perf_counter()))
     sources = {
         "jacobi_eigh": "wavespec_tpu/kernels/jacobi_pallas.py:121",
         "music_select": "wavespec_tpu/kernels/music_select_pallas.py:214",
@@ -4210,6 +4265,8 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
     log(f"kernel launches over every main path: {launches}")
+    log("seconds a phase: " + ", ".join(f"{n} {t1 - t0:.1f}" for (n, t0), (_, t1)
+                                      in zip(phase_s, phase_s[1:])))
     log(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

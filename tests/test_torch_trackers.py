@@ -104,11 +104,19 @@ def one_thread():
 
 
 SEQUENTIAL_CASES = {
-    # (t, j, seed, batch, capacity, ties)
-    "j10": (40, 10, 21, (), 64, False),
-    "ties": (40, 24, 22, (), 16, True),
-    "batch_all_bins": (16, 41, 23, (2,), 32, False),
+    # (t, j, seed, batch, capacity, stream: tracker_stream's default,
+    # its tie-heavy one, or drag_tie_stream, whose j is 149)
+    "j10": (40, 10, 21, (), 64, "default"),
+    "ties": (40, 24, 22, (), 16, "ties"),
+    "batch_all_bins": (16, 41, 23, (2,), 32, "default"),
+    "drag_tie": (8, 149, 24, (), 128, "drag-tie"),
 }
+
+
+def sequential_stream(t, j, seed, batch, kind):
+    if kind == "drag-tie":
+        return testing.drag_tie_stream(t, seed, batch)
+    return candidate_stream(t, j, seed, batch, ties=kind == "ties")
 
 
 @pytest.mark.usefixtures("one_thread")
@@ -116,9 +124,11 @@ SEQUENTIAL_CASES = {
 def test_sequential_match_matches_jax(case):
     """The reference-exact matcher (`sequential_match=True`): every output
     and the final state equal to the JAX package's XLA scan, one shot and
-    resumed from a split (also from a state the JAX package handed over)."""
-    t, j, seed, batch, cap, ties = SEQUENTIAL_CASES[case]
-    frames = candidate_stream(t, j, seed, batch, ties=ties)
+    resumed from a split (also from a state the JAX package handed over);
+    also on rows dragged across the band with costs tied within and across
+    lanes of the kernel's rows, and more periods than rows."""
+    t, j, seed, batch, cap, kind = SEQUENTIAL_CASES[case]
+    frames = sequential_stream(t, j, seed, batch, kind)
     jcfg = jtr.TrackerConfig(capacity=cap, sequential_match=True)
     want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)
     pcfg = ptr.TrackerConfig(**dataclasses.asdict(jcfg))
@@ -202,6 +212,7 @@ PAST_256_CASES = {
     "ties_595": ("ties", 3, 595, 32, 257, 1),
     "rows_past_256": ("geometric", 4, 300, 33, 320, 257),
     "rows_used_up": ("geometric", 4, 300, 34, 257, 200),
+    "drag_tie": ("drag-tie", 7, 149, 35, 300, 90),
 }
 
 
@@ -212,11 +223,13 @@ def test_sequential_match_past_256_rows_matches_jax(case):
     geometry): every output and the final state equal to the JAX
     package's XLA scan over 595 candidates a frame, as many as window
     16384's band [18, 52] gives, on a spread stream (more than 64 rows
-    alive) and a tie-heavy one; and over 300 periods beyond each other's
+    alive) and a tie-heavy one; over 300 periods beyond each other's
     tolerance, past 256 rows alive, and at a capacity that they fill, so
-    that the dead rows run out and candidates are dropped."""
+    that the dead rows run out and candidates are dropped; and on rows
+    dragged across the band with tied costs (`testing.drag_tie_stream`)."""
     kind, t, j, seed, cap, alive = PAST_256_CASES[case]
     frames = (geometric_stream(t, j, seed) if kind == "geometric" else
+              testing.drag_tie_stream(t, seed) if kind == "drag-tie" else
               candidate_stream(t, j, seed, ties=kind == "ties", spread=kind == "spread"))
     jcfg = jtr.TrackerConfig(capacity=cap, sequential_match=True)
     want, wstate = jtr.track_frames(*map(jnp.asarray, frames), cfg=jcfg)

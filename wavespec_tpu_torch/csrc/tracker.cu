@@ -15,18 +15,30 @@
 // Mode kSeq replaces only the matching and the row allocation: the
 // frame's candidates j = 0..J-1 in order, each on the rows as the earlier
 // candidates left them (`analyze/trackers.py::_sequential_match_update`
-// step for step). A candidate step is the eligible rows' costs
-// (match_cost_fast, match_cost where that is not sure), the warp's least
-// cost by one redux.sync, the least uid among the rows of that cost by a
-// second, and the first row holding it (or, unmatched, the first dead
-// row); the lane that owns the row updates it at once. It walks only the
-// row slots in use (every alive row lies in them): in the register
-// geometry a frame dispatches once to a step specialised to their count
-// (`seq_run<NR, U>`, the row found by a ballot a slot), in the memory
-// geometry a loop walks them (`seq_run_mem`, each lane keeping its first
-// row of least (cost, uid)). In both a least uid of 2^31 - 1 takes row 0,
-// as the plain version's first argmin does. Deactivation, slots and leaks
-// are the vectorized mode's.
+// step for step, with its tie rules). Through a frame's steps each lane
+// keeps, for its row slots in use, each row's period where it is eligible
+// (else 0) and its uid in registers: all of them in the register
+// geometry, the first kSeqRegSlots (384 rows) in the memory geometry,
+// whose region holds the rest (read only once more slots are in use);
+// the row a step writes records the candidate in `touch`, and the rest of
+// its state (power, fft index, seen, bars inactive, alive) is taken from
+// those records at the frame's end. A frame dispatches once to a step
+// specialised to the slots in use (`seq_fast<U>`). A step is one
+// redux.sync of the least cost and a ballot that finds the lane holding
+// it; the lane that owns the row writes it at once. Its chain is cut
+// short: the next candidate's costs are computed while the reduction
+// runs and the written row's is patched after (the cost of the two
+// candidates' periods), the tolerance test is decided without its
+// division on the ratio of the periods (`seq_bounds`: four products a
+// candidate, two compares a row), and the common step has one
+// warp-uniform branch, to the rare step (ties, a test not sure, a
+// candidate not valid, a row made past U), which takes the plain
+// version's rule in full. Frames where an eligible uid may be 2^31 - 1,
+// or with more slots in use than the registers hold, take `seq_general`
+// (each step over every slot in use, the least uid by a second redux and
+// a least uid of 2^31 - 1 taking row 0, as the plain version's first
+// argmin does), and are counted (`general_frames`). Deactivation, slots
+// and leaks are the vectorized mode's.
 //
 // What bounds it: each frame reads 4 * J candidate words and writes
 // 11 * S words per symbol, a few hundred bytes, and does a few thousand
@@ -35,8 +47,8 @@
 // arithmetic: 1024 symbols (8 warps an SM) take about as long as 128.
 // A warp reduction is five dependent shuffles; one per candidate, slot
 // fill and slot leak search made a frame ~16 us on the H100, so none is
-// left on the chain (~3.4 us a frame) but the sequential mode's (two a
-// candidate).
+// left on the chain (~3.4 us a frame) but the sequential mode's (one a
+// candidate, and a ballot).
 //
 // Design: one warp per symbol (one block of 32 threads), the frame loop
 // inside the kernel, no warp reduction on the chain. Two geometries:
@@ -136,12 +148,18 @@ struct Outputs {
 // nr, ns: rows and slots a lane of the memory geometry; region_bytes: its
 // region a symbol; region_shared: the region lies in dynamic shared
 // memory (before the ring), else in the global scratch.
+// q_fast, q_in, q_out: the sequential matcher's tolerance test without
+// its division (`seq_bounds`); general_frames: its count of frames whose
+// steps took seq_general.
 struct Params {
   int T, J, C, S, F;
   float tol, leak_pr, leak_wr;
   int max_inactive, leak_min, leak_max;
   int nr, ns, region_shared;
   long long region_bytes;
+  int q_fast;
+  float q_in_lo, q_in_hi, q_out_lo, q_out_hi;
+  int32_t* general_frames;   // gains the frames that took seq_general, or null
 };
 
 // Frames per stage and the dynamic shared memory: per stage F * J
@@ -328,138 +346,325 @@ template <> struct SlotMask<2> { using T = unsigned long long; };
 __device__ __forceinline__ int first_bit(unsigned m) { return __ffs(m) - 1; }
 __device__ __forceinline__ int first_bit(unsigned long long m) { return __ffsll(m) - 1; }
 
-// ---- the sequential matcher (mode kSeq) ----
-
-// A frame's candidates (staged or in global memory) and the constants of
-// its steps.
-struct SeqFrame {
-  const float* cp;
-  const float* cw;
-  const int32_t* cf;
-  const uint8_t* cv;
-  int J, C, lane;
-  bool fast;
-  float tol;
-};
-
-// The next candidate, read a step ahead.
-struct SeqCand {
-  float p, pw;
-  int fi;
-  bool valid;
-};
-
-// A lane's rows lane + 32 i, i < NR, by reference to the kernel's arrays.
-template <int NR> struct Rows {
-  float (&per)[NR];
-  float (&pw)[NR];
-  int (&fi)[NR];
-  int (&bi)[NR];
-  int (&uid)[NR];
-  bool (&al)[NR];
-  bool (&seen)[NR];
-  const bool (&ex)[NR];
-};
-
-// The candidate steps from candidate j on over the first U slots of rows
-// (rows lane + 32 i, i < U), where every alive row lies, so that every
-// row past them is dead and the first of those, row 32 U, is the first
-// dead row where the U slots hold none. Each step is the plain version's
-// (`analyze/trackers.py::_sequential_match_update`): the eligible rows'
-// costs (match_cost_fast; match_cost where that is not sure), the warp's
-// least by one redux.sync, the least uid among the rows of that cost by a
-// second (the plain version's first argmin over uid, kImax where not
-// tied), the first row holding it or, unmatched, the first dead row, by
-// ballots in row order; the lane that owns the row updates it at once.
-// The step is branch-free but for that division. Returns the next
-// candidate: J, or, where a candidate took row 32 U, the one after it,
-// with nu = U + 1.
-template <int NR, int U>
-__device__ __forceinline__ int seq_run(const SeqFrame& fr, int j, SeqCand& nx, Rows<NR>& r,
-                                       int& next_uid, int& nu) {
-  constexpr int UP = U < NR ? U + 1 : NR;   // the slots a step may touch
-  for (; j < fr.J; ++j) {
-    const SeqCand c = nx;
-    const int jn = j + 1 < fr.J ? j + 1 : j;
-    nx = SeqCand{fr.cp[jn], fr.cw[jn], fr.cf[jn], fr.cv[jn] != 0};
-    if (!(c.valid & (c.p > 0.f))) continue;   // the same in every lane: nothing changes
-    const bool p_fast = fr.fast & in_range(c.p);
-    unsigned cb[U];
-    bool uns[U];
-    bool any_uns = false;
+// Cycle counts of a candidate step's sections (see `seq_fast`), for
+// `b4s_compare.py --probe`, which builds this file with -DTRACKER_PROBE:
+// each lane keeps them in registers and lane 0 of block 0 stores them
+// once, at the end. In every other build the marks compile to nothing.
+#ifdef TRACKER_PROBE
+constexpr int kProbeSections = 14;
+__device__ unsigned long long g_probe[kProbeSections + 1];
+struct Probe {
+  unsigned long long acc[kProbeSections] = {};
+  unsigned long long steps = 0;
+  long long last = 0;
+  __device__ __forceinline__ void start() { last = clock64(); }
+  // the cycles since the last mark go to section k; `v` is waited on first
+  __device__ __forceinline__ void mark(int k, unsigned v = 0u) {
+    unsigned z;
+    asm volatile("and.b32 %0, %1, 0;" : "=r"(z) : "r"(v));
+    const long long t = clock64();
+    acc[k] += static_cast<unsigned long long>(t - last) + z;
+    last = t;
+  }
+  __device__ __forceinline__ void step() { ++steps; }
+  __device__ __forceinline__ void store(int b, int lane) const {
+    if ((b == 0) & (lane == 0)) {
 #pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const bool el = r.ex[i] & r.al[i] & (r.bi[i] == 0);
-      bool u = !(p_fast & in_range(r.per[i]));
-      const float cost = match_cost_fast(c.p, r.per[i], fr.tol, u);
-      uns[i] = el & u;
-      any_uns |= uns[i];
-      cb[i] = __float_as_uint(el ? cost : kBig);   // costs >= 0: their bits order as they do
-    }
-    if (any_uns) {
-#pragma unroll
-      for (int i = 0; i < U; ++i) {
-        if (uns[i]) cb[i] = __float_as_uint(match_cost(c.p, r.per[i], fr.tol));
-      }
-    }
-    unsigned lmin = cb[0];
-#pragma unroll
-    for (int i = 1; i < U; ++i) lmin = min(lmin, cb[i]);
-    const unsigned least = __reduce_min_sync(kFull, lmin);
-    const bool matched = __uint_as_float(least) < kBig;
-    int val[U];
-#pragma unroll
-    for (int i = 0; i < U; ++i) val[i] = cb[i] == least ? r.uid[i] : kImax;
-    int lu = val[0];
-#pragma unroll
-    for (int i = 1; i < U; ++i) lu = min(lu, val[i]);
-    const int least_uid = matched ? __reduce_min_sync(kFull, lu) : 0;
-    unsigned row_m = 0;
-    int row_i = -1;
-#pragma unroll
-    for (int i = 0; i < U; ++i) {
-      const bool take = matched ? (val[i] == least_uid) : !r.al[i];
-      const unsigned m = __ballot_sync(kFull, r.ex[i] & take);
-      row_i = (row_m == 0) & (m != 0) ? i : row_i;
-      row_m = row_m == 0 ? m : row_m;
-    }
-    if ((row_m == 0) & (!matched | (least_uid == kImax)) & (U < NR) & (32 * U < fr.C)) {
-      row_i = U;   // row 32 U, in lane 0
-      row_m = 1u;
-    }
-    const bool owner = fr.lane == __ffs(row_m) - 1;   // none where row_m is 0
-    const bool made = (row_m != 0) & !matched;
-#pragma unroll
-    for (int i = 0; i < UP; ++i) {
-      const bool mine = owner & (i == row_i);
-      r.per[i] = mine ? c.p : r.per[i];
-      r.pw[i] = mine ? c.pw : r.pw[i];
-      r.fi[i] = mine ? c.fi : r.fi[i];
-      r.seen[i] |= mine;
-      r.bi[i] = mine ? 0 : r.bi[i];
-      r.uid[i] = mine & made ? next_uid : r.uid[i];
-      r.al[i] |= mine & made;
-    }
-    next_uid += made ? 1 : 0;
-    if (row_i == U) {
-      nu = U + 1;
-      return j + 1;
+      for (int k = 0; k < kProbeSections; ++k) g_probe[k] = acc[k];
+      g_probe[kProbeSections] = steps;
     }
   }
-  return fr.J;
-}
+};
+#else
+struct Probe {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int, unsigned = 0u) {}
+  __device__ __forceinline__ void step() {}
+  __device__ __forceinline__ void store(int, int) const {}
+};
+#endif
 
-// ---- the sequential matcher in the memory geometry (mode kSeq) ----
+// ---- the sequential matcher (mode kSeq) ----
+
+// kSeqRegSlots: the row slots a lane that the sequential matcher keeps in
+// registers through a frame's steps in the memory geometry (rows lane +
+// 32 i, i < kSeqRegSlots); slots past them stay in the region.
+constexpr int kSeqRegSlots = 12;
+
+// A frame's candidates (staged or in global memory), its dead rows and
+// the constants of its steps. The dead rows at the frame's start, in row
+// order: d_row[0, n_dead), then every row from dead_from to C - 1.
+struct SeqFrame {
+  const float* cp;
+  const uint8_t* cv;
+  int32_t* touch;        // per row: the last candidate that touched it this frame, else -1
+  const int32_t* d_row;
+  int J, C, n_dead, dead_from, lane;
+  bool fast;             // the test without division may be sure (Params::q_fast)
+  float tol, q_in_lo, q_in_hi, q_out_lo, q_out_hi;
+};
+
+// Where a frame's steps stand: the current candidate (j, its period p;
+// j == J past the last valid one) and the next valid one (jn, pn), the
+// rows made so far, the next dead row (nd; -1 where none is left) and the
+// next uid.
+struct SeqState {
+  int j, jn;
+  float p, pn;
+  int n_made, nd, next_uid;
+};
+
+__device__ __forceinline__ bool seq_ok(const SeqFrame& fr, int k) {
+  return (fr.cv[k] != 0) & (fr.cp[k] > 0.f);
+}
+// the first valid candidate from k on, J where none is
+__device__ __forceinline__ int seq_next(const SeqFrame& fr, int k) {
+  while (k < fr.J && !seq_ok(fr, k)) ++k;
+  return k;
+}
+// *p = v where c, by a predicated store (no branch)
+__device__ __forceinline__ void store_if(int32_t* p, int32_t v, bool c) {
+  asm volatile("{\n .reg .pred q;\n setp.ne.b32 q, %2, 0;\n @q st.s32 [%0], %1;\n}"
+               :: "l"(p), "r"(v), "r"(static_cast<int>(c)) : "memory");
+}
+// the next candidate becomes the current one; the one after it is
+// candidate jq (period pq) where that is valid (ok_q), else the next
+// valid one past it
+__device__ __forceinline__ void seq_advance(const SeqFrame& fr, SeqState& s, int jq, float pq,
+                                            bool ok_q) {
+  s.j = s.jn;
+  s.p = s.pn;
+  s.jn = ok_q ? jq : seq_next(fr, min(jq, fr.J));
+  s.pn = ok_q ? pq : (s.jn < fr.J ? fr.cp[s.jn] : 0.f);
+}
+// the k-th dead row of the frame's start, -1 where there is none
+__device__ __forceinline__ int seq_dead(const SeqFrame& fr, int k) {
+  const int implicit = fr.dead_from + k - fr.n_dead;
+  const int listed = fr.d_row[min(k, max(fr.n_dead - 1, 0))];
+  return k < fr.n_dead ? listed : (implicit < fr.C ? implicit : -1);
+}
 
 // A row's cost bits against candidate period p (match_cost_fast; a row
 // not eligible has period 0, a cost of kBig); `uns` is set where the test
-// is not sure for an eligible row.
+// is not sure for an eligible row. seq_general's.
 __device__ __forceinline__ unsigned fast_cost_bits(float p, float e, float tol, bool p_fast,
                                                    bool& uns) {
   bool u = !(p_fast & in_range(e));
   const float cost = match_cost_fast(p, e, tol, u);
   uns |= u & (e > 0.f);
   return __float_as_uint(cost);   // costs >= 0: their bits order as they do
+}
+
+// The tolerance test of seq_fast without its division, on the ratio q =
+// e / p of a row's eligible period e to the candidate's p. The plain
+// version's pct = |p - e| / (0.5 (p + e)) * 100 is 200 |1 - q| / (1 + q)
+// in real numbers, at most P exactly for q in [a(P), 1 / a(P)], a(P) =
+// (200 - P) / (200 + P); in float32 it is within 5 * 2^-24 of that
+// (relative) for p in [1e-20, 1e20], any e > 0 and tol <= 100. So a row
+// lies surely within tol where e is in [p q_in_lo, p q_in_hi] (the bounds
+// of P = tol (1 - 2^-20), tightened by 2^-20 more), surely beyond it
+// where e < p q_out_lo or e > p q_out_hi (those of tol (1 + 2^-20),
+// widened by 2^-20), and the test is not sure between (match_cost
+// decides). A period of 0 (a row not eligible) lies beyond. The host
+// derives the four constants (`tracker_launch`) where tol is in [1e-3,
+// 100] (q_fast); elsewhere, or for p outside [1e-20, 1e20], no row is
+// sure.
+struct SeqBounds {
+  float in_lo, in_hi, out_lo, out_hi;
+};
+__device__ __forceinline__ SeqBounds seq_bounds(const SeqFrame& fr, float p) {
+  const bool ok = fr.fast & in_range(p);
+  return SeqBounds{ok ? p * fr.q_in_lo : INFINITY, ok ? p * fr.q_in_hi : -INFINITY,
+                   ok ? p * fr.q_out_lo : -INFINITY, ok ? p * fr.q_out_hi : INFINITY};
+}
+__device__ __forceinline__ unsigned seq_cost_bits(float p, float e, const SeqBounds& q, bool& uns) {
+  const bool in = (e >= q.in_lo) & (e <= q.in_hi);
+  const bool out = (e < q.out_lo) | (e > q.out_hi);
+  uns |= !(in | out);
+  return in ? (__float_as_uint(p - e) & 0x7fffffffu) : kBigBits;   // |p - e|, as fabsf
+}
+
+// The costs of candidate period p on the first U slots of eligible
+// periods `ep`; returns whether any was not sure (then seq_costs_exact).
+template <int U, int NR>
+__device__ __forceinline__ bool seq_costs(const SeqFrame& fr, float p, const float (&ep)[NR],
+                                          unsigned (&cb)[U]) {
+  const SeqBounds q = seq_bounds(fr, p);
+  bool uns = false;
+#pragma unroll
+  for (int i = 0; i < U; ++i) cb[i] = seq_cost_bits(p, ep[i], q, uns);
+  return uns;
+}
+template <int U, int NR>
+__device__ __forceinline__ void seq_costs_exact(const SeqFrame& fr, float p, const float (&ep)[NR],
+                                                unsigned (&cb)[U]) {
+#pragma unroll
+  for (int i = 0; i < U; ++i) cb[i] = __float_as_uint(match_cost(p, ep[i], fr.tol));
+}
+
+// Row s.nd takes candidate s.j as a made row, past the slots a step
+// walks (in registers below NR, else in the region's `r_ep`), and the
+// steps go on from the next candidate.
+template <bool kMem, int NR>
+__device__ __forceinline__ void seq_make(const SeqFrame& fr, SeqState& s, float (&ep)[NR],
+                                         int (&uid)[NR], float* r_ep, int32_t* r_uid) {
+  const int row = s.nd, slot = row >> 5;
+  const bool own = fr.lane == (row & 31);
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const bool w = own & (slot == i);
+    ep[i] = w ? s.p : ep[i];
+    uid[i] = w ? s.next_uid : uid[i];
+  }
+  if (own) {
+    if constexpr (kMem) {
+      if (slot >= NR) {
+        r_ep[32 * slot] = s.p;
+        r_uid[32 * slot] = s.next_uid;
+      }
+    }
+    fr.touch[row] = s.j;
+  }
+  s.next_uid += 1;
+  s.n_made += 1;
+  s.nd = seq_dead(fr, s.n_made);
+  const int jq = min(s.jn + 1, fr.J);
+  seq_advance(fr, s, jq, jq < fr.J ? fr.cp[jq] : 0.f, (jq < fr.J) && seq_ok(fr, jq));
+}
+
+// Where the least cost is not held by one lane's one row: the least uid
+// among the rows of that cost, then the first row holding it (rows in
+// order: slot, then lane). Returns this lane's slot to write, -1 for none.
+template <int U, int NR>
+__device__ __forceinline__ int seq_tie(unsigned hit, const int (&uid)[NR], int lane) {
+  int lu = kImax;
+#pragma unroll
+  for (int i = 0; i < U; ++i) lu = ((hit >> i) & 1u) ? min(lu, uid[i]) : lu;
+  const int least_uid = __reduce_min_sync(kFull, lu);
+  int slot = -1;
+  unsigned found = 0;
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const unsigned m = __ballot_sync(kFull, ((hit >> i) & 1u) & (uid[i] == least_uid));
+    slot = (found == 0) & (m != 0) & (lane == __ffs(m) - 1) ? i : slot;
+    found |= m;
+  }
+  return slot;
+}
+
+// A step's write: the lane that owns the row (`slot` >= 0) sets its
+// eligible period to p, its uid where the row is `made`, and its cost
+// against the next candidate to `cw`; and records the candidate.
+template <int U, int NR>
+__device__ __forceinline__ void seq_write(const SeqFrame& fr, const SeqState& s, int slot,
+                                          bool made, unsigned cw, float (&ep)[NR],
+                                          int (&uid)[NR], unsigned (&cbn)[U]) {
+#pragma unroll
+  for (int i = 0; i < U; ++i) {
+    const bool w = slot == i;
+    ep[i] = w ? s.p : ep[i];
+    uid[i] = w & made ? s.next_uid : uid[i];
+    cbn[i] = w ? cw : cbn[i];
+  }
+  store_if(fr.touch + fr.lane + 32 * slot, s.j, slot >= 0);
+}
+
+// The candidate steps of a frame over the first U row slots (rows
+// lane + 32 i, i < U, where every alive row lies), in registers, in a
+// frame where every step is sure (no eligible row's uid is 2^31 - 1, and
+// none made can be). Each step is the plain version's
+// (`analyze/trackers.py::_sequential_match_update`): the eligible rows'
+// least cost by one redux.sync, then the row holding it: where one lane
+// holds it in one slot (two ballots say so), that row; else the least
+// uid among the rows of that cost by a second redux.sync and the first
+// row holding it by a ballot a slot (`seq_tie`); unmatched, the first
+// dead row. The lane that owns the row writes it at once (its eligible
+// period and, made, its uid) and records the candidate in `touch`.
+// The chain is cut short: the reduction is issued first, and while it
+// runs the next candidate's costs are computed on the rows as they stand
+// (the one row the step writes is patched after: its cost against the
+// next candidate is that of the two candidates' periods) and the
+// candidate after the next is read (used a step later). The common step
+// has no branch but the loop's and one, warp-uniform, to the rare step (a
+// tie, a cost not sure without the division, a candidate not valid, a
+// row made past U). Returns -1 at the frame's end, or the slot past U of
+// a row that a candidate is to make (s unchanged: the caller makes it,
+// `seq_make`, and goes on with more slots).
+template <int U, int NR>
+__device__ __forceinline__ int seq_fast(const SeqFrame& fr, SeqState& s, float (&ep)[NR],
+                                        int (&uid)[NR], Probe& pb) {
+  unsigned cb[U];
+  if (seq_costs<U>(fr, s.p, ep, cb)) seq_costs_exact<U>(fr, s.p, ep, cb);
+  // the candidate after the next (index s.jn + 1), read a step ahead
+  int kq = min(s.jn + 1, fr.J - 1);
+  float pq = fr.cp[kq];
+  bool vq = fr.cv[kq] != 0;
+  while (s.j < fr.J) {
+    pb.step();
+    unsigned lmin = cb[0];
+#pragma unroll
+    for (int i = 1; i < U; ++i) lmin = min(lmin, cb[i]);
+    pb.mark(2, lmin);
+    const unsigned least = __reduce_min_sync(kFull, lmin);
+    // while it runs: the candidate after that, the dead row after the
+    // next, and the next candidate's costs
+    const int k2 = min(s.jn + 2, fr.J - 1);
+    const float p2 = fr.cp[k2];
+    const bool v2 = fr.cv[k2] != 0;
+    const int nd_next = seq_dead(fr, s.n_made + 1);
+    unsigned cbn[U];
+    const SeqBounds qn = seq_bounds(fr, s.pn);
+    bool unsn = false, unw = false;
+#pragma unroll
+    for (int i = 0; i < U; ++i) cbn[i] = seq_cost_bits(s.pn, ep[i], qn, unsn);
+    const unsigned cw = seq_cost_bits(s.pn, s.p, qn, unw);
+    const bool ok_q = (s.jn + 1 < fr.J) & vq & (pq > 0.f);
+    pb.mark(3, least);
+    const bool matched = __uint_as_float(least) < kBig;
+    unsigned hit = 0;
+#pragma unroll
+    for (int i = 0; i < U; ++i) hit |= matched & (cb[i] == least) ? 1u << i : 0u;
+    const unsigned hm = __ballot_sync(kFull, hit != 0);
+    const unsigned rare_m = __ballot_sync(kFull, ((hit & (hit - 1)) != 0) | unsn);
+    const bool made = !matched & (s.nd >= 0);
+    const int ds = s.nd >> 5;
+    pb.mark(6, hm ^ rare_m);
+    if (((hm & (hm - 1)) != 0) | (rare_m != 0) | unw | !ok_q | (made & (ds >= U))) {
+      // the rare step
+      if (made & (ds >= U)) return ds;
+      const int slot = matched ? seq_tie<U>(hit, uid, fr.lane)
+                               : (made & (fr.lane == (s.nd & 31)) ? ds : -1);
+      seq_write<U>(fr, s, slot, made, cw, ep, uid, cbn);
+      // where a cost was not sure, all of them again by division, on the
+      // rows as written (the written row's included)
+      if (unsn | unw) seq_costs_exact<U>(fr, s.pn, ep, cbn);
+      s.next_uid += made ? 1 : 0;
+      s.n_made += made ? 1 : 0;
+      s.nd = made ? nd_next : s.nd;
+      seq_advance(fr, s, s.jn + 1, pq, ok_q);
+      kq = min(s.jn + 1, fr.J - 1);
+      pq = fr.cp[kq];
+      vq = fr.cv[kq] != 0;
+    } else {
+      // one lane holds the least cost in one slot, or no row does (made
+      // or dropped)
+      const int slot = matched ? __ffs(hit) - 1 : (made & (fr.lane == (s.nd & 31)) ? ds : -1);
+      seq_write<U>(fr, s, slot, made, cw, ep, uid, cbn);
+      s.next_uid += made ? 1 : 0;
+      s.n_made += made ? 1 : 0;
+      s.nd = made ? nd_next : s.nd;
+      s.j = s.jn;
+      s.p = s.pn;
+      s.jn += 1;
+      s.pn = pq;
+      pq = p2;
+      vq = v2;
+    }
+    pb.mark(7, cbn[0]);
+#pragma unroll
+    for (int i = 0; i < U; ++i) cb[i] = cbn[i];
+  }
+  return -1;
 }
 
 // A lane's running least (cost, uid) over its row slots, the first slot
@@ -473,103 +678,106 @@ struct RowLeast {
     uid = less ? u : uid;
     slot = less ? i : slot;
   }
-  // the lesser in (cost, uid, slot) of two runs over disjoint slots
-  __device__ __forceinline__ void join(const RowLeast& o) {
-    const bool less = (o.cost < cost) |
-                      ((o.cost == cost) & ((o.uid < uid) | ((o.uid == uid) & (o.slot < slot))));
-    cost = less ? o.cost : cost;
-    uid = less ? o.uid : uid;
-    slot = less ? o.slot : slot;
-  }
 };
 
-// A lane's rows lane + 32 i of the region, and each row's period where it
-// is eligible (alive, bars_inactive 0), else 0 (a cost of kBig).
-struct MemRows {
-  LaneArr<float, 1, true> per, pw, el_per;
-  LaneArr<int, 1, true> fi, bi, uid;
-  LaneArr<bool, 1, true> al, seen;
-};
-
-// A frame's candidate steps over the rows of the region: seq_run's chain,
-// with the nu slots in use (rows lane + 32 i, i < nu, where every alive
-// row lies) walked in a loop, two slots side by side (four read slower).
-// Each lane keeps its first row of least (cost, uid); the warp's least
-// cost by one redux.sync and the least uid among the lanes of that cost
-// by a second (a least uid of 2^31 - 1 takes row 0, as the plain
-// version's first argmin does); the lane holding both
-// owns the row (where two lanes do, a third redux takes the first row).
-// Unmatched, a valid candidate takes the next row of the frame's dead
-// list `d_row` (rows leave it only by being made, in row order, so that
-// is the first dead row), or is dropped. The owner updates its row at
-// once; a lane reads only its own rows, so no step waits on a write of
-// another lane.
-__device__ __forceinline__ void seq_run_mem(const SeqFrame& fr, const MemRows& r,
-                                            const int32_t* d_row, int n_dead, int nu,
-                                            int& next_uid) {
-  int n_made = 0;
-  SeqCand nx{fr.cp[0], fr.cw[0], fr.cf[0], fr.cv[0] != 0};
-  for (int j = 0; j < fr.J; ++j) {
-    const SeqCand c = nx;
-    const int jn = j + 1 < fr.J ? j + 1 : j;
-    nx = SeqCand{fr.cp[jn], fr.cw[jn], fr.cf[jn], fr.cv[jn] != 0};
-    if (!(c.valid & (c.p > 0.f))) continue;   // the same in every lane: nothing changes
-    const bool p_fast = fr.fast & in_range(c.p);
-    // slots 0, 2, ... here and 1, 3, ... in `odd`, joined after; a lane
-    // whose cost test was unsure anywhere takes its least again by division
-    RowLeast lst, odd;
+// The candidate steps of the rest of a frame where seq_fast cannot take
+// them: the memory geometry's slots past NR in use (the first NR in
+// registers, the rest in the region's `r_ep`, `r_uid`, walked in a loop),
+// or a frame that is not sure. Each step is the plain version's in full:
+// each lane's first slot of least (cost, uid); the warp's least cost by
+// one redux.sync and the least uid among the lanes of that cost by a
+// second; a least uid of 2^31 - 1 takes row 0, as the plain version's
+// first argmin does (row 0 is then eligible after only if alive:
+// `row0_dead`, dead at the frame's start, and not made since); else the
+// lane holding both owns the row (where two lanes do, a third redux takes
+// the first row). Unmatched, a valid candidate takes the first dead row,
+// or is dropped.
+template <int NR, bool kMem>
+__device__ __forceinline__ void seq_general(const SeqFrame& fr, SeqState& s, float (&ep)[NR],
+                                            int (&uid)[NR], int& nu, float* r_ep, int32_t* r_uid,
+                                            bool row0_dead, Probe& pb) {
+  while (s.j < fr.J) {
+    pb.step();
+    const int jq = s.jn + 1;
+    const int kq = min(jq, fr.J - 1);
+    const float pq = fr.cp[kq];
+    const bool ok_q = (jq < fr.J) & (fr.cv[kq] != 0) & (pq > 0.f);
+    const float p = s.p;
+    const bool pf = fr.fast & in_range(p);
+    RowLeast lst;
     bool uns = false;
-    int i = 0;
-    for (; i + 1 < nu; i += 2) {
-      lst.take(fast_cost_bits(c.p, r.el_per[i], fr.tol, p_fast, uns), r.uid[i], i);
-      odd.take(fast_cost_bits(c.p, r.el_per[i + 1], fr.tol, p_fast, uns), r.uid[i + 1], i + 1);
+#pragma unroll
+    for (int i = 0; i < NR; ++i) lst.take(fast_cost_bits(p, ep[i], fr.tol, pf, uns), uid[i], i);
+    if constexpr (kMem) {
+      for (int i = NR; i < nu; ++i) {
+        lst.take(fast_cost_bits(p, r_ep[32 * i], fr.tol, pf, uns), r_uid[32 * i], i);
+      }
     }
-    if (i < nu) lst.take(fast_cost_bits(c.p, r.el_per[i], fr.tol, p_fast, uns), r.uid[i], i);
-    lst.join(odd);
     if (uns) {
       lst = RowLeast{};
-      for (int k = 0; k < nu; ++k) {
-        lst.take(__float_as_uint(match_cost(c.p, r.el_per[k], fr.tol)), r.uid[k], k);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) lst.take(__float_as_uint(match_cost(p, ep[i], fr.tol)), uid[i], i);
+      if constexpr (kMem) {
+        for (int i = NR; i < nu; ++i) {
+          lst.take(__float_as_uint(match_cost(p, r_ep[32 * i], fr.tol)), r_uid[32 * i], i);
+        }
       }
     }
-    const unsigned lc = lst.cost;
-    const int lu = lst.uid, li = lst.slot;
-    const unsigned least = __reduce_min_sync(kFull, lc);
-    bool own, made = false;
-    int oi;
+    pb.mark(9, lst.cost);
+    const unsigned least = __reduce_min_sync(kFull, lst.cost);
+    pb.mark(3, least);
+    int slot = -1;   // the slot this lane writes
+    bool made = false, alive = true;
     if (__uint_as_float(least) < kBig) {
-      const int least_uid = __reduce_min_sync(kFull, lc == least ? lu : kImax);
-      const bool h = (lc == least) & (lu == least_uid) & (least_uid != kImax);
-      const unsigned hm = __ballot_sync(kFull, h);
-      own = least_uid == kImax ? fr.lane == 0 : h;
-      oi = least_uid == kImax ? 0 : li;
-      if (hm & (hm - 1)) {
-        const unsigned first = __reduce_min_sync(kFull, h ? 32u * li + fr.lane : ~0u);
-        own = fr.lane == static_cast<int>(first & 31u);
-        oi = static_cast<int>(first >> 5);
+      const int lu = lst.cost == least ? lst.uid : kImax;
+      pb.mark(4, lu);
+      const int least_uid = __reduce_min_sync(kFull, lu);
+      pb.mark(5, least_uid);
+      if (least_uid == kImax) {
+        slot = fr.lane == 0 ? 0 : -1;
+        alive = !row0_dead | (s.n_made > 0);
+      } else {
+        const bool h = (lst.cost == least) & (lst.uid == least_uid);
+        const unsigned hm = __ballot_sync(kFull, h);
+        slot = h ? lst.slot : -1;
+        if (hm & (hm - 1)) {
+          const unsigned first = __reduce_min_sync(kFull, h ? 32u * lst.slot + fr.lane : ~0u);
+          slot = fr.lane == static_cast<int>(first & 31u) ? static_cast<int>(first >> 5) : -1;
+        }
       }
-    } else if (n_made < n_dead) {
-      const int row = d_row[n_made++];
-      own = fr.lane == (row & 31);
-      oi = row >> 5;
+    } else if (s.nd >= 0) {
       made = true;
-      nu = max(nu, oi + 1);
-    } else {
-      continue;   // no dead row left: dropped, as in the plain version
+      slot = fr.lane == (s.nd & 31) ? s.nd >> 5 : -1;
+      nu = max(nu, (s.nd >> 5) + 1);
+    } else {   // no dead row left: dropped, as in the plain version
+      seq_advance(fr, s, jq, pq, ok_q);
+      continue;
     }
-    if (own) {
-      r.per[oi] = c.p;
-      r.pw[oi] = c.pw;
-      r.fi[oi] = c.fi;
-      r.seen[oi] = true;
-      r.bi[oi] = 0;
-      if (made) {
-        r.uid[oi] = next_uid;
-        r.al[oi] = true;
+    pb.mark(6, slot);
+    const float e = alive ? p : 0.f;
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const bool w = slot == i;
+      ep[i] = w ? e : ep[i];
+      uid[i] = w & made ? s.next_uid : uid[i];
+    }
+    if (slot >= 0) {
+      if constexpr (kMem) {
+        if (slot >= NR) {
+          r_ep[32 * slot] = e;
+          if (made) r_uid[32 * slot] = s.next_uid;
+        }
       }
-      r.el_per[oi] = r.al[oi] ? c.p : 0.f;
+      fr.touch[fr.lane + 32 * slot] = s.j;
     }
-    next_uid += made ? 1 : 0;
+    if (made) {
+      s.next_uid += 1;
+      s.n_made += 1;
+      s.nd = seq_dead(fr, s.n_made);
+    }
+    pb.mark(7);
+    seq_advance(fr, s, jq, pq, ok_q);
+    pb.mark(0, s.jn);
   }
 }
 
@@ -614,6 +822,8 @@ __global__ void __launch_bounds__(32, 1) tracker_kernel(Inputs in, State init, b
               sh_u_j, sh_d_row, sh_s_su, sh_s_row, sh_fill_uid, sh_fill_row};
   }
   const int ring_step = kStaged ? stage_words(F, J) : 0;
+  Probe pb;
+  pb.start();
 
   // ---- state: rows lane + 32 i, slots lane + 32 u ----
   LaneArr<float, NR, kMem> per, pw;
@@ -665,8 +875,22 @@ __global__ void __launch_bounds__(32, 1) tracker_kernel(Inputs in, State init, b
     l.s_su[lane + 32 * u] = su[u];
     l.s_row[lane + 32 * u] = none_row;
   }
+  // kSeq: no row touched; every row's eligible period 0 in the region;
+  // uid_max: an alive row's uid is 2^31 - 1 (the frames are then not
+  // sure); nu_alive: the slots that may hold an alive row
+  bool uid_max = false;
+  int nu_alive = 0, n_general = 0;
 #pragma unroll
-  for (int i = 0; i < nr; ++i) l.r_win[lane + 32 * i] = kNone;
+  for (int i = 0; i < nr; ++i) {
+    l.r_win[lane + 32 * i] = kNone;
+    if constexpr (kSeq) {
+      l.e_row[lane + 32 * i] = -1;
+      if constexpr (kMem) l.e_per[lane + 32 * i] = 0.f;
+      uid_max |= al[i] & (uid[i] == kImax);
+      nu_alive = __any_sync(kFull, al[i]) ? i + 1 : nu_alive;
+    }
+  }
+  if constexpr (kSeq) uid_max = __any_sync(kFull, uid_max) != 0;
   __syncwarp();
 
   const long long sym0 = (long long)b * T * J;
@@ -704,56 +928,123 @@ __global__ void __launch_bounds__(32, 1) tracker_kernel(Inputs in, State init, b
       const int32_t* cf = c_fft + fj;
       const uint8_t* cv = c_valid + fj;
 
-      if constexpr (kSeq && !kMem) {
+      if constexpr (kSeq) {
+        pb.mark(10);   // the frame before: slots, leaks
         // ---- the reference-exact matcher: the candidates in order, each
-        // on the rows as the frame's earlier candidates left them, over
-        // the first nu slots of rows (every alive row lies there) ----
-        int nu = 1;
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          seen[i] = false;
-          nu = __any_sync(kFull, al[i]) ? i + 1 : nu;
-        }
-        bool ex[NR];
-#pragma unroll
-        for (int i = 0; i < NR; ++i) ex[i] = lane + 32 * i < C;
-        SeqCand nx{cp[0], cw[0], cf[0], cv[0] != 0};
-        Rows<NR> rows{per.v, pw.v, fi.v, bi.v, uid.v, al.v, seen.v, ex};
-        const SeqFrame fr{cp, cw, cf, cv, J, C, lane, fast, prm.tol};
-        int j = 0;
-        while (j < J) {   // nu grows where a candidate takes the first row past them
-          switch (nu) {
-            case 1: j = seq_run<NR, 1>(fr, j, nx, rows, next_uid, nu); break;
-            case 2: j = seq_run<NR, 2>(fr, j, nx, rows, next_uid, nu); break;
-            case 3: if constexpr (NR >= 4) j = seq_run<NR, 3>(fr, j, nx, rows, next_uid, nu); break;
-            case 4: if constexpr (NR >= 4) j = seq_run<NR, 4>(fr, j, nx, rows, next_uid, nu); break;
-            case 5: if constexpr (NR >= 8) j = seq_run<NR, 5>(fr, j, nx, rows, next_uid, nu); break;
-            case 6: if constexpr (NR >= 8) j = seq_run<NR, 6>(fr, j, nx, rows, next_uid, nu); break;
-            case 7: if constexpr (NR >= 8) j = seq_run<NR, 7>(fr, j, nx, rows, next_uid, nu); break;
-            default: if constexpr (NR >= 8) j = seq_run<NR, 8>(fr, j, nx, rows, next_uid, nu); break;
-          }
-        }
-      } else if constexpr (kSeq) {
-        // ---- the same in the memory geometry: the eligible periods, the
-        // dead rows in row order and the slots in use, then the steps ----
+        // on the rows as the frame's earlier candidates left them. At the
+        // frame's start, over the slots that may hold an alive row (all of
+        // them in registers; in the region the first nu_alive): each row's
+        // period where it is eligible (else 0, a cost of kBig), the first
+        // NR slots in registers and the rest in the region; the dead rows
+        // in row order (every row past those slots is dead); the slots in
+        // use (every alive row lies in them) ----
+        const int nw = kMem ? nu_alive : NR;
+        float ep[NR];
+        int ur[NR];
         int n_dead = 0, nu = 0;
-        LaneArr<float, 1, true> el_per;
-        el_per.p = l.e_per + lane;
-        for (int i = 0; i < nr; ++i) {
+        int32_t* d_row = kMem ? l.d_row : l.u_j;
+        float* r_ep = kMem ? l.e_per + lane : nullptr;
+        int32_t* r_uid = kMem ? m.uid + lane : nullptr;
+        auto start_row = [&](int i) {
           const int row = lane + 32 * i;
           const bool ex = row < C;
-          seen[i] = false;
-          el_per[i] = (ex & al[i] & (bi[i] == 0)) ? per[i] : 0.f;
+          const bool a = ex & al[i];
+          const float e = a & (bi[i] == 0) ? per[i] : 0.f;
+          const unsigned dm = __ballot_sync(kFull, ex & !a);
+          if (ex & !a) d_row[n_dead + __popc(dm & lt)] = row;
+          n_dead += __popc(dm);
+          nu = __any_sync(kFull, a) ? i + 1 : nu;
+          return e;
+        };
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          ep[i] = 0.f;
+          ur[i] = 0;
+          if (i < nw) {
+            ep[i] = start_row(i);
+            ur[i] = uid[i];
+          }
+        }
+        if constexpr (kMem) {
+          for (int i = NR; i < nw; ++i) r_ep[32 * i] = start_row(i);
+        }
+        // sure: no step can meet a least uid of 2^31 - 1 (seq_fast)
+        const bool sure = !uid_max & (next_uid <= kImax - J);
+        const bool row0_dead = __shfl_sync(kFull, static_cast<int>(!al[0]), 0) != 0;
+        __syncwarp();
+        const SeqFrame fr{cp, cv, l.e_row, d_row, J, C, n_dead, 32 * nw, lane, prm.q_fast != 0,
+                          prm.tol, prm.q_in_lo, prm.q_in_hi, prm.q_out_lo, prm.q_out_hi};
+        SeqState s;
+        s.j = seq_next(fr, 0);
+        s.p = s.j < J ? cp[s.j] : 0.f;
+        s.jn = seq_next(fr, min(s.j + 1, J));
+        s.pn = s.jn < J ? cp[s.jn] : 0.f;
+        s.n_made = 0;
+        s.nd = seq_dead(fr, 0);
+        s.next_uid = next_uid;
+        nu = max(nu, 1);   // the steps walk one slot at least
+        pb.mark(11, nu);
+        while (s.j < J) {
+          int grow = -1;
+          if (sure & (nu <= NR)) {
+            switch (nu) {   // a step specialised to the slots in use
+              case 1: grow = seq_fast<1>(fr, s, ep, ur, pb); break;
+              case 2: if constexpr (NR >= 2) grow = seq_fast<2>(fr, s, ep, ur, pb); break;
+              case 3: if constexpr (NR >= 3) grow = seq_fast<3>(fr, s, ep, ur, pb); break;
+              case 4: if constexpr (NR >= 4) grow = seq_fast<4>(fr, s, ep, ur, pb); break;
+              case 5: if constexpr (NR >= 5) grow = seq_fast<5>(fr, s, ep, ur, pb); break;
+              case 6: if constexpr (NR >= 6) grow = seq_fast<6>(fr, s, ep, ur, pb); break;
+              case 7: if constexpr (NR >= 7) grow = seq_fast<7>(fr, s, ep, ur, pb); break;
+              case 8: if constexpr (NR >= 8) grow = seq_fast<8>(fr, s, ep, ur, pb); break;
+              case 9: if constexpr (NR >= 9) grow = seq_fast<9>(fr, s, ep, ur, pb); break;
+              case 10: if constexpr (NR >= 10) grow = seq_fast<10>(fr, s, ep, ur, pb); break;
+              case 11: if constexpr (NR >= 11) grow = seq_fast<11>(fr, s, ep, ur, pb); break;
+              default: if constexpr (NR >= 12) grow = seq_fast<12>(fr, s, ep, ur, pb); break;
+            }
+          } else {
+            seq_general<NR, kMem>(fr, s, ep, ur, nu, r_ep, r_uid, row0_dead, pb);
+            ++n_general;
+          }
+          if (grow >= 0) {
+            seq_make<kMem>(fr, s, ep, ur, r_ep, r_uid);
+            nu = grow + 1;
+          }
+        }
+        next_uid = s.next_uid;
+        // ---- over the slots in use now: each row touched takes its last
+        // candidate; the rows made (the first n_made dead rows) come
+        // alive, with their uids ----
+        __syncwarp();
+        int n_dead2 = 0;
+        auto end_row = [&](int i, int u_reg, bool in_reg) {
+          const int row = lane + 32 * i;
+          const bool ex = row < C;
           const bool dead = ex & !al[i];
           const unsigned dm = __ballot_sync(kFull, dead);
-          if (dead) l.d_row[n_dead + __popc(dm & lt)] = row;
-          n_dead += __popc(dm);
-          nu = __any_sync(kFull, al[i]) ? i + 1 : nu;
+          const bool made = dead & (n_dead2 + __popc(dm & lt) < s.n_made);
+          n_dead2 += __popc(dm);
+          const int t = ex ? l.e_row[row] : -1;
+          seen[i] = t >= 0;
+          if (t >= 0) {
+            per[i] = cp[t];
+            pw[i] = cw[t];
+            fi[i] = cf[t];
+            bi[i] = 0;
+            l.e_row[row] = -1;
+          }
+          if (made) {
+            al[i] = true;
+            if (in_reg) uid[i] = u_reg;
+          }
+        };
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          if (i < nu) end_row(i, ur[i], true);
         }
-        __syncwarp();
-        const MemRows rows{{per.p}, {pw.p}, el_per, {fi.p}, {bi.p}, {uid.p}, {al.p}, {seen.p}};
-        seq_run_mem(SeqFrame{cp, cw, cf, cv, J, C, lane, fast, prm.tol}, rows, l.d_row, n_dead,
-                    nu, next_uid);
+        if constexpr (kMem) {
+          for (int i = NR; i < nu; ++i) end_row(i, 0, false);
+          nu_alive = nu;
+        }
         __syncwarp();
       } else {
         // ---- eligible rows, in row order ----
@@ -1077,6 +1368,10 @@ __global__ void __launch_bounds__(32, 1) tracker_kernel(Inputs in, State init, b
     }
   }
   if (lane == 0) fin.next_uid[b] = next_uid;
+  if ((lane == 0) & (n_general > 0) & (prm.general_frames != nullptr)) {
+    atomicAdd(prm.general_frames, n_general);
+  }
+  pb.store(b, lane);
 #pragma unroll
   for (int u = 0; u < ns; ++u) {
     if (lane + 32 * u < S) {
@@ -1109,16 +1404,22 @@ int launch(const Inputs& ins, const State& st0, bool has_init, const Outputs& o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NR, int NS, bool kMem>
-int launch_mode(bool staged, bool seq, const Inputs& ins, const State& st0, bool has_init,
+// one mode (kSeq) of one geometry, staged or not
+template <int NR, int NS, bool kSeq, bool kMem>
+int launch_mode(bool staged, const Inputs& ins, const State& st0, bool has_init,
                 const Outputs& o, const State& fin, const Params& prm, int B,
                 size_t smem, uint8_t* scratch, cudaStream_t stream) {
-  if (seq) {
-    return staged ? launch<NR, NS, true, true, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream)
-                  : launch<NR, NS, false, true, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream);
-  }
-  return staged ? launch<NR, NS, true, false, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream)
-                : launch<NR, NS, false, false, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream);
+  return staged ? launch<NR, NS, true, kSeq, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream)
+                : launch<NR, NS, false, kSeq, kMem>(ins, st0, has_init, o, fin, prm, B, smem, scratch, stream);
+}
+
+// both modes of a register geometry
+template <int NR, int NS>
+int launch_regs(bool staged, bool seq, const Inputs& ins, const State& st0, bool has_init,
+                const Outputs& o, const State& fin, const Params& prm, int B,
+                size_t smem, uint8_t* scratch, cudaStream_t stream) {
+  return seq ? launch_mode<NR, NS, true, false>(staged, ins, st0, has_init, o, fin, prm, B, smem, scratch, stream)
+             : launch_mode<NR, NS, false, false>(staged, ins, st0, has_init, o, fin, prm, B, smem, scratch, stream);
 }
 
 // the register geometry's static shared bytes: 16 words a row and 4 a
@@ -1136,6 +1437,13 @@ int smem_optin() {
 }
 
 }  // namespace
+
+#ifdef TRACKER_PROBE
+// The probe's section cycles and its step count, of the last launch.
+extern "C" int tracker_probe_read(unsigned long long* out) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe)));
+}
+#endif
 
 // The kernel's geometry at J candidates, capacity C and S slots on a card
 // with `smem_optin` bytes of shared memory a block: rows and slots a lane
@@ -1169,6 +1477,17 @@ extern "C" void tracker_plan(int J, int C, int S, int smem_optin, int* nr, int* 
   }
 }
 
+// The row slots a lane that the sequential matcher keeps in registers
+// through a frame's steps at J candidates, capacity C and S slots: all of
+// them in the register geometry, the first kSeqRegSlots (at most) in the
+// memory geometry, whose region holds the rest.
+extern "C" int tracker_seq_rows(int J, int C, int S) {
+  int nr, ns, memory, staged;
+  long long region, smem;
+  tracker_plan(J, C, S, smem_optin(), &nr, &ns, &memory, &region, &staged, &smem);
+  return memory ? min(nr, kSeqRegSlots) : nr;
+}
+
 // The global scratch a symbol that tracker_launch needs on the current
 // device at J candidates, capacity C and S slots: the region where
 // tracker_plan puts it in global memory, else 0.
@@ -1185,6 +1504,8 @@ extern "C" long long tracker_scratch_bytes(int J, int C, int S) {
 // TrackerState order. `sequential`: the reference-exact matcher (kSeq),
 // else the vectorized one. `scratch`: `scratch_bytes` of global memory,
 // at least B * region where tracker_plan names memory 2, else unused.
+// `general_frames`: one int32 on the card that gains the symbol-frames
+// whose sequential steps took seq_general, or null.
 // Returns a cudaError_t code: a scratch too small, a shared-memory size
 // the card cannot give, or a refused launch, is returned, never skipped.
 extern "C" int tracker_launch(void* const* in, void* const* init,
@@ -1192,7 +1513,8 @@ extern "C" int tracker_launch(void* const* in, void* const* init,
                               int T, int J, int C, int S, float tol,
                               int max_inactive, float leak_pr, float leak_wr,
                               int leak_min, int leak_max, void* scratch,
-                              long long scratch_bytes, void* stream) {
+                              long long scratch_bytes, int32_t* general_frames,
+                              void* stream) {
   if (C < 1 || S < 1 || J < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
   int nr, ns, memory, staged;
   long long region, smem;
@@ -1210,20 +1532,31 @@ extern "C" int tracker_launch(void* const* in, void* const* init,
             static_cast<int32_t*>(out[6]), static_cast<float*>(out[7]),
             static_cast<float*>(out[8]), static_cast<int32_t*>(out[9]),
             static_cast<int32_t*>(out[10])};
+  // seq_bounds's constants: a(P) = (200 - P) / (200 + P), margins of 2^-20
+  const double m = 1.0 / (1 << 20), t = tol;
+  auto a = [](double pct) { return (200.0 - pct) / (200.0 + pct); };
+  const double a_in = a(t * (1 - m)), a_out = a(t * (1 + m));
   Params prm{T, J, C, S, frames_per_stage(J), tol, leak_pr, leak_wr,
-             max_inactive, leak_min, leak_max, nr, ns, memory == 1, region};
+             max_inactive, leak_min, leak_max, nr, ns, memory == 1, region,
+             tol >= 1e-3f && tol <= 100.f, static_cast<float>(a_in * (1 + m)),
+             static_cast<float>(1 / a_in * (1 - m)), static_cast<float>(a_out * (1 - m)),
+             static_cast<float>(1 / a_out * (1 + m)), general_frames};
   const State fn = state_from(fin);
   const bool hi = init != nullptr, sq = sequential != 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t sm = static_cast<size_t>(smem);
   uint8_t* scr = static_cast<uint8_t*>(scratch);
-  if (memory) return launch_mode<1, 1, true>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+  if (memory) {
+    // the sequential matcher keeps its first kSeqRegSlots slots in registers
+    return sq ? launch_mode<kSeqRegSlots, 1, true, true>(staged, ins, st0, hi, o, fn, prm, B, sm, scr, st)
+              : launch_mode<1, 1, false, true>(staged, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+  }
   switch (nr * 10 + ns) {
-    case 21: return launch_mode<2, 1, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
-    case 22: return launch_mode<2, 2, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
-    case 41: return launch_mode<4, 1, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
-    case 42: return launch_mode<4, 2, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
-    case 81: return launch_mode<8, 1, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
-    default: return launch_mode<8, 2, false>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 21: return launch_regs<2, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 22: return launch_regs<2, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 41: return launch_regs<4, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 42: return launch_regs<4, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    case 81: return launch_regs<8, 1>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
+    default: return launch_regs<8, 2>(staged, sq, ins, st0, hi, o, fn, prm, B, sm, scr, st);
   }
 }

@@ -10,6 +10,10 @@ equal to it, for either matcher (`cfg.sequential_match`) at any capacity
 and slot count. Its `launches` counts the vectorized mode's launches and
 `sequential_mode.launches` the sequential mode's. A CPU tensor goes to
 the plain version; a CUDA tensor goes to the kernel, with no fallback.
+`general_frames` (an int32 tensor of one element on the card) gains the
+symbol-frames whose sequential steps left the fast step (`seq_fast`):
+a frame not sure of its tie rule, or more rows in use than the
+sequential matcher keeps in registers (`TrackerPlan.seq_rows` slots).
 """
 
 from __future__ import annotations
@@ -28,6 +32,10 @@ from wavespec_tpu_torch.kernels._build import check, load_library
 # in registers); past either, the kernel's memory geometry takes over.
 MAX_CAPACITY = 256
 MAX_SLOTS = 64
+# The row slots a lane that the sequential matcher keeps in registers
+# through a frame's steps in the memory geometry (`csrc/tracker.cu::
+# kSeqRegSlots`): 384 rows.
+SEQ_REG_SLOTS = 12
 _SMEM_OPTIN = 227 * 1024
 _STAGE_BYTES = 24 * 1024
 _MAX_FRAMES = 16
@@ -42,6 +50,7 @@ class TrackerPlan(NamedTuple):
     smem: int        # dynamic shared bytes
     memory: str      # where the rows and slots lie: registers, shared or global
     region: int      # bytes of the memory geometry's region a symbol (0 in registers)
+    seq_rows: int    # row slots a lane the sequential matcher's steps keep in registers
 
 
 def _region_bytes(cp: int, sp: int) -> int:
@@ -63,7 +72,11 @@ def launch_plan(j: int, c: int, s: int, smem_optin: int = _SMEM_OPTIN,
     0 (candidates read from global memory) where one frame's do not fit.
     Every c, s and j >= 1 has a geometry; below 1 raises ValueError. The
     wrapper sizes its scratch from the library's own plan
-    (`tracker_scratch_bytes`); this one serves checks without a card."""
+    (`tracker_scratch_bytes`); this one serves checks without a card.
+    The sequential matcher's steps keep every row slot in registers in
+    the register geometry and the first `SEQ_REG_SLOTS` in the memory
+    geometry (`seq_rows`; `csrc/tracker.cu::tracker_seq_rows`), reading
+    the region only once more slots are in use."""
     del sequential   # the same geometry for both matchers
     if min(j, c, s) < 1:
         raise ValueError(f"capacity {c}, slots {s}, candidates {j}: the tracker kernel takes "
@@ -75,16 +88,42 @@ def launch_plan(j: int, c: int, s: int, smem_optin: int = _SMEM_OPTIN,
         ns = 1 if s <= 32 else 2
         staged = 4 * (16 * 32 * nr + 16) + 16 * 32 * ns + ring <= smem_optin
         return TrackerPlan(nr, ns, frames if staged else 0, ring if staged else 0,
-                           "registers", 0)
+                           "registers", 0, nr)
     nr, ns = -(-c // 32), -(-s // 32)
     region = _region_bytes(32 * nr, 32 * ns)
-    fixed = 1024
+    fixed, seq_rows = 1024, min(nr, SEQ_REG_SLOTS)
     if fixed + region + ring <= smem_optin:
-        return TrackerPlan(nr, ns, frames, region + ring, "shared", region)
+        return TrackerPlan(nr, ns, frames, region + ring, "shared", region, seq_rows)
     if fixed + region <= smem_optin:
-        return TrackerPlan(nr, ns, 0, region, "shared", region)
+        return TrackerPlan(nr, ns, 0, region, "shared", region, seq_rows)
     staged = fixed + ring <= smem_optin
-    return TrackerPlan(nr, ns, frames if staged else 0, ring if staged else 0, "global", region)
+    return TrackerPlan(nr, ns, frames if staged else 0, ring if staged else 0, "global", region,
+                       seq_rows)
+
+
+def seq_ratio_bounds(tol: float) -> tuple[bool, float, float, float, float]:
+    """The constants of the sequential matcher's tolerance test without
+    its division (`csrc/tracker.cu::seq_bounds`, derived as
+    `tracker_launch` derives them): whether the test may be sure (`tol`,
+    as a float32, in [1e-3, 100]) and the float32 ratios (in_lo, in_hi,
+    out_lo, out_hi). For a candidate period p in [1e-20, 1e20] a row of
+    eligible period e lies surely within `tol` of it where p * in_lo <= e
+    <= p * in_hi (float32 products), surely beyond where e < p * out_lo or
+    e > p * out_hi, and the plain version's division decides between. The
+    ratios are a(P) = (200 - P) / (200 + P) and 1 / a(P) at P = tol (1 -
+    2^-20) and tol (1 + 2^-20), each moved 2^-20 inward or outward."""
+    import numpy as np
+
+    t = float(np.float32(tol))
+    m = 2.0 ** -20
+
+    def a(pct: float) -> float:
+        return (200.0 - pct) / (200.0 + pct)
+
+    a_in, a_out = a(t * (1 - m)), a(t * (1 + m))
+    ratios = (a_in * (1 + m), 1 / a_in * (1 - m), a_out * (1 - m), 1 / a_out * (1 + m))
+    fast = np.float32(1e-3) <= np.float32(t) <= np.float32(100.0)
+    return (bool(fast), *(float(np.float32(r)) for r in ratios))
 
 
 def check_config(cfg: TrackerConfig) -> None:
@@ -100,18 +139,26 @@ _OUT_DTYPES = {"slot_period": torch.float32, "slot_power": torch.float32,
                "leak_bars": torch.int32}
 
 
+# --fmad=false: the tolerance expression must round as the plain PyTorch
+# ops do (no contraction into fused multiply-adds); --split-compile=0:
+# nvcc optimises the 28 kernels of the source on every core (26 s against
+# 64 s beside the other sources on the H100 machine's 8 cores, the same
+# results bitwise)
+BUILD_FLAGS = ("--fmad=false", "--split-compile=0")
+
+
 def _lib() -> ctypes.CDLL:
-    # --fmad=false: the tolerance expression must round as the plain
-    # PyTorch ops do (no contraction into fused multiply-adds).
-    lib = load_library("tracker", ("--fmad=false",))
+    lib = load_library("tracker", BUILD_FLAGS)
     fn = lib.tracker_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.tracker_scratch_bytes.argtypes = [ctypes.c_int] * 3
-    lib.tracker_scratch_bytes.restype = ctypes.c_longlong
+    for name, restype in (("tracker_scratch_bytes", ctypes.c_longlong),
+                          ("tracker_seq_rows", ctypes.c_int)):
+        getattr(lib, name).argtypes = [ctypes.c_int] * 3
+        getattr(lib, name).restype = restype
     return lib
 
 
@@ -129,12 +176,19 @@ def _require(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device) -> N
 
 def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
                         fft_idx: torch.Tensor, valid: torch.Tensor,
-                        cfg: TrackerConfig, init: TrackerState | None = None):
+                        cfg: TrackerConfig, init: TrackerState | None = None,
+                        general_frames: torch.Tensor | None = None):
     """(dict of ``[..., T, S]`` slot outputs, final `TrackerState`), in
     `cfg`'s matcher: the vectorized mode (B4) or the sequential mode (B4s),
-    each counting its launches."""
+    each counting its launches. On the card `general_frames` (one int32 on
+    the candidates' device, or None) gains the sequential mode's
+    symbol-frames that left the fast step; the CPU route leaves it."""
     if not periods.is_cuda:
         return track_frames_plain(periods, powers, fft_idx, valid, cfg, init)
+    if general_frames is not None and (general_frames.dtype != torch.int32
+                                       or general_frames.numel() != 1
+                                       or general_frames.device != periods.device):
+        raise ValueError(f"general_frames: need one int32 on {periods.device}")
     lead, (t_frames, j) = tuple(periods.shape[:-2]), tuple(periods.shape[-2:])
     c, s = cfg.capacity, cfg.n_slots
     launch_plan(j, c, s, sequential=cfg.sequential_match)
@@ -179,7 +233,8 @@ def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
                 b, t_frames, j, c, s, cfg.tolerance_pct, cfg.max_inactive,
                 cfg.leak_period_ratio, cfg.leak_power_ratio, cfg.leak_min_bars,
                 cfg.leak_max_bars, scratch.data_ptr() if scratch.numel() else None,
-                scratch.numel(), torch.cuda.current_stream().cuda_stream)
+                scratch.numel(), None if general_frames is None else general_frames.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         check(status, "tracker_launch")
         (sequential_mode if cfg.sequential_match else track_frames_kernel).launches += 1
     else:

@@ -360,6 +360,44 @@ def tracker_stream(t: int, j: int, seed: int, batch: tuple[int, ...] = (),
     return periods, powers, fft, valid
 
 
+def drag_tie_stream(t: int, seed: int, batch: tuple[int, ...] = ()):
+    """Tracker candidates ``[*batch, t, 149]`` (periods, powers, fft
+    indices, valid) made with numpy from `seed`, for the sequential
+    matcher: rows dragged across the band and match costs tied exactly.
+
+    Each frame holds, in this order: 32 even periods a_k from 50, 20%
+    apart, then b_k = a_k + 2 round(0.04 a_k) (beyond a_k's 5% tolerance:
+    rows k and 32 + k, one lane of a warp of rows); 16 pairs (c_k, d_k)
+    likewise from 20,000, 30% apart, made one after the other
+    (neighbouring rows, in two lanes); an ascending sweep of 40 periods 1%
+    apart from [8, 30] (one row dragged 48% along the band, across any
+    bucket of log-period); and 13 periods log-uniform over [2, 7.5]. On
+    odd frames each pair gives way to its midpoint, twice: as far from
+    either row in float32, so the least uid and then the first row decide.
+    Powers come from {1, 2, 3}, so that slot-fill and leak scores tie too;
+    one candidate in ten past the a and b periods is dropped (not valid).
+    """
+    rng = np.random.default_rng(seed)
+    a = 2.0 * np.round(50.0 * 1.2 ** np.arange(32) / 2.0)
+    c = 2.0 * np.round(20000.0 * 1.3 ** np.arange(16) / 2.0)
+    b, d = a + 2.0 * np.round(0.04 * a), c + 2.0 * np.round(0.04 * c)
+    shape = (*batch, t, 149)
+    periods = np.empty(shape)
+    for f in range(t):
+        pairs = (np.concatenate([a, b, np.stack([c, d], -1).ravel()]) if f % 2 == 0 else
+                 np.repeat(np.concatenate([(a + b) / 2.0, (c + d) / 2.0]), 2))
+        sweep = rng.uniform(8.0, 30.0, size=(*batch, 1)) * 1.01 ** np.arange(40)
+        rand = np.exp(rng.uniform(np.log(2.0), np.log(7.5), size=(*batch, 13)))
+        periods[..., f, :] = np.concatenate([np.broadcast_to(pairs, (*batch, 96)), sweep, rand], -1)
+    periods = periods.astype(np.float32)
+    powers = rng.integers(1, 4, size=shape).astype(np.float32)
+    valid = (rng.random(shape) > 0.1) | (np.arange(149) < 64)
+    fft = (4096 / np.maximum(periods, 1.0)).astype(np.int32)
+    periods = np.where(valid, periods, 0.0).astype(np.float32)
+    powers = np.where(valid, powers, 0.0).astype(np.float32)
+    return periods, powers, fft, valid
+
+
 def tail_stream(t: int, s: int, seed: int, batch: tuple[int, ...] = ()):
     """Tail inputs (newest ``[*batch, t]``, price_prev ``[*batch, 2]``,
     slot periods, valid and group delay ``[*batch, t, s]``) made with numpy
