@@ -1,0 +1,10 @@
+"""Kernel B3's share of its roofline at the cell's shapes: the band DFT's
+bound (`roofline.b3_bound_s`) over B3's device time a call."""
+
+from wsbench import roofline
+
+
+def read(run):
+    s = run.slice
+    t = s.hand_s("B3") / s.calls if s is not None and s.calls else 0.0
+    return 100.0 * roofline.b3_bound_s(run.config["program"], run.traffic) / t if t else None
