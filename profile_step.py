@@ -25,9 +25,12 @@ around a synchronised step, then traces one step with `torch.profiler`
 and prints: the untraced step times and their median, the device kernel
 time of the traced step, the device's busy share (kernel time over the
 untraced median), the number of kernels launched, the peak device
-memory, the device time of each hand-written kernel, and the operators
-with the most device time. With `--out`, the profiler's full tables are
-written to that file. (i16k) takes about a minute of the run.
+memory, the device time of each hand-written kernel, the operators
+with the most device time, and per span of the port (`wavespec.<entry>`,
+its stages, the kernel wrappers: `utils/telemetry.py`) the kernels
+launched inside it and their device milliseconds. With `--out`, the
+profiler's full tables are written to that file. (i16k) takes about a
+minute of the run.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ def main() -> None:
                                     run_v757_batch)
     from wavespec_tpu_torch.analyze.trackers import TrackerConfig
     from wavespec_tpu_torch.bench import bench_series
+    from wavespec_tpu_torch.utils.telemetry import span_totals
     from wavespec_tpu_torch.utils.timing import host_ms
 
     card = subprocess.run(
@@ -184,7 +188,10 @@ def main() -> None:
             "step_ms_untraced": walls, "step_ms_median": wall,
             "device_kernel_ms": kernel_ms, "busy_share": kernel_ms / wall,
             "kernel_launches": launches, "peak_mib": peak_mib,
-            "hand_kernel_ms": hand, "top_ops_device_ms": top}), flush=True)
+            "hand_kernel_ms": hand, "top_ops_device_ms": top,
+            "span_launches_device_ms": {k: [n, 1e3 * s] for k, (n, s)
+                                        in sorted(span_totals(prof.events()).items())}}),
+              flush=True)
         tables.append(f"== shape ({name}) {what} [{card}]\n"
                       + events.table(sort_by="self_device_time_total", row_limit=40))
     if args.out is not None:

@@ -362,11 +362,6 @@ def test_telemetry_matches_jax():
         hud.windows_per_sec = 440000
         hud.note = "warm"
         huds.append(hud.render())
-        c = mod.ThroughputCounter()
-        assert c.stop(5) == 0.0 and c.rate == 0.0
-        c.start()
-        time.sleep(0.005)
-        assert c.stop(100) > 0 and c.total_items == 100 and c.rate > 0
     assert huds[0] == huds[1] and "50.0%" in huds[0]
 
 

@@ -42,6 +42,10 @@ EXCEPTIONS = {
     ("kernels/__init__.py", "dft_factors"): "kept with the FFT helpers, `ops.spectrum.dft_factors`",
     ("ops/gather.py", None): "one-hot gathers for the TPU; the port indexes plainly",
     ("utils/vma.py", None): "shard_map vma plumbing; nothing to replace on one card",
+    # Dropped from the port.
+    ("utils/telemetry.py", "ThroughputCounter"):
+        "no caller; the benchmark's rates (`wsbench`) count the port's throughput",
+    ("utils/__init__.py", "ThroughputCounter"): "dropped with `utils/telemetry.py`'s",
 }
 
 

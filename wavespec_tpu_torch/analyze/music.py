@@ -23,6 +23,10 @@ Pipeline per window:
 
 Steps 2-4 up to the fit are `music_candidates`, which stops after any
 stage (`upto`) as the JAX package's does; `music_extract` runs it whole.
+Their spans (`utils.telemetry`) are ``wavespec.extract.music.<stage>``:
+``frames`` (the high-pass and windows; `extract.MusicExtractor` opens it
+for the rolling batch), ``subspace`` (step 1 and 2), ``select`` (the band
+power and step 3), ``refine`` (step 4 to the fit) and ``attrs``.
 
 The static tables (band plan, frequency grids, core masks, the
 bin -> grid-index table) are numpy, exactly as the JAX package builds
@@ -37,6 +41,7 @@ import torch
 from torch import nn
 
 from wavespec_tpu_torch.ops.spectrum import band_indices, power_spectrum
+from wavespec_tpu_torch.utils.telemetry import trace
 
 __all__ = [
     "GridTables",
@@ -49,6 +54,9 @@ __all__ = [
     "peaks_in_exclusion",
     "select_candidates_plain",
 ]
+
+# The MUSIC stages' spans are ``wavespec.extract.music.<stage>``.
+SPAN = "wavespec.extract.music"
 
 
 def music_hp_period(cfg) -> int:
@@ -710,36 +718,39 @@ def music_candidates(windows: torch.Tensor, cfg, band_windows=None, seed_spec=No
         tables = GridTables(cfg, windows.dtype).to(windows.device)
     if band_windows is None and rows_hp is None:
         rows_hp = HighpassMXU(band_rows_hp_periods(cfg), dtype=windows.dtype).to(windows.device)
-    pseudo, eigvals = music_pseudospectrum(band_windows, cfg, tables, windows, rows_hp)
+    with trace(SPAN + ".subspace"):
+        pseudo, eigvals = music_pseudospectrum(band_windows, cfg, tables, windows, rows_hp)
     out = {"pseudo": pseudo, "freqs": tables.freqs, "eigvals": eigvals, "core": tables.core,
            "band_slices": tables.band_slices}
     if upto == "pseudo":
         return out
-    if upto == "peaks":
-        out.update(_subspace_peaks(pseudo, cfg, tables))
-        return out
-    k_min, k_max = tables.k_min, tables.k_max
-    if seed_spec is None:
-        seed_spec = framed_spectrum(windows, k_max + 1)
-    band_power = power_spectrum(seed_spec)[..., k_min: k_max + 1]
-    if upto == "ridge":
-        out.update(_add_ridge_seeds(_subspace_peaks(pseudo, cfg, tables), pseudo,
-                                    band_power, cfg, tables))
-        return out
-    out.update(select_candidates(pseudo, band_power.contiguous(), cfg, tables))
+    with trace(SPAN + ".select"):
+        if upto == "peaks":
+            out.update(_subspace_peaks(pseudo, cfg, tables))
+            return out
+        k_min, k_max = tables.k_min, tables.k_max
+        if seed_spec is None:
+            seed_spec = framed_spectrum(windows, k_max + 1)
+        band_power = power_spectrum(seed_spec)[..., k_min: k_max + 1]
+        if upto == "ridge":
+            out.update(_add_ridge_seeds(_subspace_peaks(pseudo, cfg, tables), pseudo,
+                                        band_power, cfg, tables))
+            return out
+        out.update(select_candidates(pseudo, band_power.contiguous(), cfg, tables))
     if upto == "prerank":
         return out
-    freq, valid, step0 = out["freq"], out["valid"], out["step0"]
-    if n >= 16 * _split_n2(n):
-        freq, _ = _refine_freq_moments(windows, freq, step0)
-    else:
-        freq, _ = _refine_freq(windows, freq, step0)
-    # refinement can merge two grid peaks; re-dedupe for a non-singular fit
-    valid = _dedupe_mask(freq, valid, 0.5 / n)
-    out.update(freq=freq, valid=valid)
-    if upto == "refine":
-        return out
-    a, b, resid_energy = _sinusoid_fit(windows, freq, valid.to(windows.dtype))
+    with trace(SPAN + ".refine"):
+        freq, valid, step0 = out["freq"], out["valid"], out["step0"]
+        if n >= 16 * _split_n2(n):
+            freq, _ = _refine_freq_moments(windows, freq, step0)
+        else:
+            freq, _ = _refine_freq(windows, freq, step0)
+        # refinement can merge two grid peaks; re-dedupe for a non-singular fit
+        valid = _dedupe_mask(freq, valid, 0.5 / n)
+        out.update(freq=freq, valid=valid)
+        if upto == "refine":
+            return out
+        a, b, resid_energy = _sinusoid_fit(windows, freq, valid.to(windows.dtype))
     out.update(a=a, b=b, resid_energy=resid_energy)
     return out
 
@@ -769,49 +780,52 @@ def music_extract(windows: torch.Tensor, cfg, band_windows, seed_spec,
     p = 2 * min(cfg.music_signals_per_band, k)
     hp_period = music_hp_period(cfg)
     if cfg.music_highpass and not pre_highpassed:
-        # the first-sample anchor zeroes the cold-start filter's level step
-        windows = windows - windows[..., :1]
-        windows = main_hp(windows)[..., 0, :]
+        with trace(SPAN + ".frames"):
+            # the first-sample anchor zeroes the cold-start filter's level step
+            windows = windows - windows[..., :1]
+            windows = main_hp(windows)[..., 0, :]
 
     st = music_candidates(windows, cfg, band_windows, seed_spec, tables=tables,
                           rows_hp=rows_hp)
-    pseudo, eigvals = st["pseudo"], st["eigvals"]
-    gidx, vals = st["gidx"].to(torch.int64), st["vals"]
-    freq, valid, a, b, resid_energy = st["freq"], st["valid"], st["a"], st["b"], st["resid_energy"]
-    k_min, k_max = tables.k_min, tables.k_max
+    with trace(SPAN + ".attrs"):
+        pseudo, eigvals = st["pseudo"], st["eigvals"]
+        gidx, vals = st["gidx"].to(torch.int64), st["vals"]
+        freq, valid = st["freq"], st["valid"]
+        a, b, resid_energy = st["a"], st["b"], st["resid_energy"]
+        k_min, k_max = tables.k_min, tables.k_max
 
-    amp = torch.sqrt(a * a + b * b)
-    psi = torch.atan2(a, b)  # x = a cos + b sin = amp * sin(w t + psi)
-    if cfg.music_highpass:
-        amp, psi = hp_gain_compensate(amp, psi, freq, hp_period)
-    omega = 2.0 * math.pi * freq
-    phase_end = omega * (n - 1) + psi
+        amp = torch.sqrt(a * a + b * b)
+        psi = torch.atan2(a, b)  # x = a cos + b sin = amp * sin(w t + psi)
+        if cfg.music_highpass:
+            amp, psi = hp_gain_compensate(amp, psi, freq, hp_period)
+        omega = 2.0 * math.pi * freq
+        phase_end = omega * (n - 1) + psi
 
-    power = (amp * n / 2.0) ** 2
-    noise_floor = torch.clamp(resid_energy, min=1e-30)  # per-bin (Parseval)
-    n_band = float(k_max - k_min + 1)
-    total_inband = torch.where(valid, power, 0.0).sum(dim=-1) + noise_floor * n_band
+        power = (amp * n / 2.0) ** 2
+        noise_floor = torch.clamp(resid_energy, min=1e-30)  # per-bin (Parseval)
+        n_band = float(k_max - k_min + 1)
+        total_inband = torch.where(valid, power, 0.0).sum(dim=-1) + noise_floor * n_band
 
-    # Coherence: the pick's pseudospectrum value over its +/-2-point
-    # neighbourhood sum (edge-padded grid).
-    g = pseudo.shape[-1]
-    padp = torch.cat([pseudo[..., :1], pseudo[..., :1], pseudo,
-                      pseudo[..., -1:], pseudo[..., -1:]], dim=-1)
-    nb_full = sum(padp[..., off: off + g] for off in range(5))
-    nb_sum = torch.gather(nb_full, -1, gidx)
-    coherence = vals / torch.clamp(nb_sum, min=1e-30)
+        # Coherence: the pick's pseudospectrum value over its +/-2-point
+        # neighbourhood sum (edge-padded grid).
+        g = pseudo.shape[-1]
+        padp = torch.cat([pseudo[..., :1], pseudo[..., :1], pseudo,
+                          pseudo[..., -1:], pseudo[..., -1:]], dim=-1)
+        nb_full = sum(padp[..., off: off + g] for off in range(5))
+        nb_sum = torch.gather(nb_full, -1, gidx)
+        coherence = vals / torch.clamp(nb_sum, min=1e-30)
 
-    # Eigen ratio: mean signal / mean noise eigenvalue, best sub-band.
-    sig_mean = eigvals[..., m - p:].mean(dim=-1)
-    noi_mean = torch.clamp(eigvals[..., : m - p].mean(dim=-1), min=1e-30)
-    ratio = torch.clamp(sig_mean / noi_mean, 0.0, 1e6).amax(dim=-1)
-    eigen_ratio = ratio[..., None].expand_as(amp)
+        # Eigen ratio: mean signal / mean noise eigenvalue, best sub-band.
+        sig_mean = eigvals[..., m - p:].mean(dim=-1)
+        noi_mean = torch.clamp(eigvals[..., : m - p].mean(dim=-1), min=1e-30)
+        ratio = torch.clamp(sig_mean / noi_mean, 0.0, 1e6).amax(dim=-1)
+        eigen_ratio = ratio[..., None].expand_as(amp)
 
-    # Final ranking: top_k candidates by fitted power.
-    _, top_idx = topk_stable(torch.where(valid, power, -1.0), k)
-    take = lambda x: torch.gather(x, -1, top_idx)
-    return _attrs_from_peaks(
-        take(freq), take(amp), take(phase_end), take(power), take(valid),
-        total_inband, noise_floor, take(coherence), take(eigen_ratio),
-        int(Method.MUSIC), cfg,
-    )
+        # Final ranking: top_k candidates by fitted power.
+        _, top_idx = topk_stable(torch.where(valid, power, -1.0), k)
+        take = lambda x: torch.gather(x, -1, top_idx)
+        return _attrs_from_peaks(
+            take(freq), take(amp), take(phase_end), take(power), take(valid),
+            total_inband, noise_floor, take(coherence), take(eigen_ratio),
+            int(Method.MUSIC), cfg,
+        )

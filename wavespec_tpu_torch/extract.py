@@ -50,6 +50,7 @@ from torch import nn
 
 from wavespec_tpu_torch.ops.arith import tree_sum
 from wavespec_tpu_torch.ops.windows import WindowType
+from wavespec_tpu_torch.utils.telemetry import trace, traced
 
 STRIDE = 15
 
@@ -524,25 +525,28 @@ class MusicExtractor(_Extractor):
 
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
         from wavespec_tpu_torch.analyze.music import (
-            band_precondition_windows, music_extract)
+            SPAN, band_precondition_windows, music_extract)
         from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
         from wavespec_tpu_torch.ops.spectrum import rfft_bins
 
         cfg = self.cfg
         if not _series_fast_path(cfg):
-            return super().forward(series, hop)
-        series = self._series(series, hop)
-        # Anchor on the first sample before the series-level filter, so the
-        # cold-start high-pass sees no level step.
-        series = series - series[..., :1]
-        hp_series = self.main_hp(series)[..., 0, :]
-        windows = frame_series(hp_series, cfg.window, hop).contiguous()
-        band_w = band_precondition_windows(hp_series, cfg, hop, self.band_hp)
-        if _hopped_route(cfg, hop):
-            seed_spec = rfft_band_hopped(hp_series.contiguous(), cfg.window, hop,
-                                         self.tables.k_max + 1)
-        else:
-            seed_spec = rfft_bins(windows)[..., :self.tables.k_max + 1]
+            with trace(SPAN + ".frames"):
+                windows = self.frames(self._series(series, hop), hop)
+            return self.extract_windows(windows)
+        with trace(SPAN + ".frames"):
+            series = self._series(series, hop)
+            # Anchor on the first sample before the series-level filter, so
+            # the cold-start high-pass sees no level step.
+            series = series - series[..., :1]
+            hp_series = self.main_hp(series)[..., 0, :]
+            windows = frame_series(hp_series, cfg.window, hop).contiguous()
+            band_w = band_precondition_windows(hp_series, cfg, hop, self.band_hp)
+            if _hopped_route(cfg, hop):
+                seed_spec = rfft_band_hopped(hp_series.contiguous(), cfg.window, hop,
+                                             self.tables.k_max + 1)
+            else:
+                seed_spec = rfft_bins(windows)[..., :self.tables.k_max + 1]
         return music_extract(windows, cfg, band_w, seed_spec, self.tables)
 
 
@@ -601,6 +605,7 @@ def _module_for(series: torch.Tensor, cfg: ExtractConfig) -> _Extractor:
     return extractor(cfg, series.device, dtype)
 
 
+@traced("wavespec.extract")
 def extract_cycles_batch(series: torch.Tensor,
                          cfg: ExtractConfig = ExtractConfig(),
                          hop: int = 1) -> torch.Tensor:
@@ -608,7 +613,8 @@ def extract_cycles_batch(series: torch.Tensor,
     ``[S, L]``: ``nwin = 1 + (L - window) // hop`` windows, window w
     covering ``series[..., w*hop : w*hop + window]``, on the device of
     `series`. Returns ``[..., nwin, top_k, 15]``, float64 for a float64
-    `series` (CPU only) and float32 otherwise.
+    `series` (CPU only) and float32 otherwise. Its span is
+    ``wavespec.extract``; MUSIC's stages are `analyze.music`'s.
     """
     with torch.no_grad():
         return _module_for(series, cfg)(series, hop)

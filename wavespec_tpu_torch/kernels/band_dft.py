@@ -22,6 +22,7 @@ import torch
 
 from wavespec_tpu_torch.kernels._build import check, load_library
 from wavespec_tpu_torch.ops.spectrum import band_dft_plain, twiddle_table
+from wavespec_tpu_torch.utils.telemetry import traced
 
 
 MAX_N = 16384
@@ -68,6 +69,7 @@ def _decimated(windows: torch.Tensor, n_bins: int, band) -> torch.Tensor:
     return (e * tab[(r[:, None] * k[None, :]) & (n - 1)]).sum(-2)
 
 
+@traced("wavespec.kernel.B3")
 def band_dft(windows: torch.Tensor, n_bins: int) -> torch.Tensor:
     """Complex64 bins ``[..., n_bins]`` of real ``windows [..., n]``."""
     if not windows.is_cuda:

@@ -49,6 +49,7 @@ import torch
 
 from wavespec_tpu_torch.kernels._build import check, load_library
 from wavespec_tpu_torch.ops.spectrum import twiddle_table
+from wavespec_tpu_torch.utils.telemetry import traced
 
 LANES = 128
 MAX_WINDOW = 1 << 22   # the kernel's twiddle indices stay in 32 bits
@@ -288,6 +289,7 @@ def _basis_tensor(n: int, k_bins: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(e).to(device)
 
 
+@traced("wavespec.kernel.H1")
 def rfft_band_hopped(series: torch.Tensor, window: int, hop: int,
                      max_bins: int) -> torch.Tensor:
     """Complex64 bins ``[..., nwin, K]`` of every rolling window of

@@ -18,6 +18,7 @@ import torch
 
 from wavespec_tpu_torch.analyze.jacobi import _round_robin_pairs, jacobi_eigh_plain
 from wavespec_tpu_torch.kernels._build import check, load_library
+from wavespec_tpu_torch.utils.telemetry import traced
 
 NARROW_M = 32      # past it, the kernel's wide instantiation
 MAX_M = 160        # the wide kernel keeps A and V of a matrix in shared memory
@@ -73,6 +74,7 @@ def pairs_table(m: int, device: torch.device) -> tuple[torch.Tensor, int, int]:
     return tbl.to(device), len(rounds), half
 
 
+@traced("wavespec.kernel.B1")
 def jacobi_eigh_unsorted(a: torch.Tensor, sweeps: int = 6):
     """Unsorted eigenpairs (diagonal [B, m], V [B, m, m]) of ``a``."""
     if not a.is_cuda:

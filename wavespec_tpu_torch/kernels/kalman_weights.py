@@ -21,6 +21,7 @@ import torch
 from wavespec_tpu_torch.filters.kalman_weights import (
     KalmanWeightsConfig, filter_constants, kalman_weights_filter_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
+from wavespec_tpu_torch.utils.telemetry import traced
 
 MAX_REGISTER_K = 256        # past it, a warp a series with its state in global scratch
 # Elements a lane where the padded k allows: the fastest of 1, 2, 4 and 8
@@ -90,6 +91,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@traced("wavespec.kernel.K1")
 def kalman_weights_kernel(basis: torch.Tensor, measurements: torch.Tensor,
                           cfg: KalmanWeightsConfig = KalmanWeightsConfig(),
                           exact_frames: torch.Tensor | None = None):

@@ -18,6 +18,7 @@ import torch
 
 from wavespec_tpu_torch.analyze.music import GridTables, select_candidates_plain
 from wavespec_tpu_torch.kernels._build import check, load_library
+from wavespec_tpu_torch.utils.telemetry import traced
 
 MAX_CANDIDATES = 128
 MAX_TOP_K = 8
@@ -65,6 +66,7 @@ def check_candidates(cfg, n_bands: int) -> None:
                          f"kernel's {MAX_CANDIDATES} / {MAX_TOP_K}")
 
 
+@traced("wavespec.kernel.B2")
 def select_candidates(pseudo: torch.Tensor, band_power: torch.Tensor, cfg,
                       tables: GridTables) -> dict:
     """Peaks -> ridge -> dedupe -> pre-rank -> keep, per window."""

@@ -27,6 +27,7 @@ import torch
 from wavespec_tpu_torch.analyze.trackers import (
     SLOT_FIELDS, TrackerConfig, TrackerState, init_state, track_frames_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
+from wavespec_tpu_torch.utils.telemetry import traced
 
 # The register geometry's thresholds (8 capacity rows and 2 slots a lane
 # in registers); past either, the kernel's memory geometry takes over.
@@ -174,6 +175,7 @@ def _require(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device) -> N
         raise ValueError(f"{name} must be contiguous")
 
 
+@traced("wavespec.kernel.B4")
 def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
                         fft_idx: torch.Tensor, valid: torch.Tensor,
                         cfg: TrackerConfig, init: TrackerState | None = None,

@@ -19,6 +19,7 @@ from wavespec_tpu_torch.analyze.eta import ATAN01
 from wavespec_tpu_torch.pipeline.tail import (TAIL_FIELDS, V757TailState,
                                               ring_capacity, v757_tail_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
+from wavespec_tpu_torch.utils.telemetry import traced
 
 # The register geometry's threshold (two slots a lane of the walking
 # warp); past it the wide geometry keeps the slots' state in a region.
@@ -143,6 +144,7 @@ def _state_shapes(s: int, cap: int) -> dict:
 _INT_STATE = frozenset({"bars", "bull", "bear", "lastdir", "lastbar", "posmode", "tpos"})
 
 
+@traced("wavespec.kernel.B5")
 def v757_tail(newest: torch.Tensor, price_prev: torch.Tensor, periods: torch.Tensor,
               valid: torch.Tensor, gd_slot: torch.Tensor, cfg, hop: int,
               init: V757TailState | None = None, return_state: bool = False):

@@ -18,7 +18,10 @@ operand shapes on a block-resumable high-pass, which the online driver
 
 `run_v757_batch` and `run_v757` are the entry points. They run on the
 card unless the caller passes ``device="cpu"`` (or a CPU tensor); on the
-CPU every kernel's plain version runs.
+CPU every kernel's plain version runs. Their spans (`utils.telemetry`):
+``wavespec.v757`` and, under it, the stages ``frames`` (the high-pass,
+framing and taper), ``band_dft``, ``candidates``, ``tracker`` and
+``tail``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from wavespec_tpu_torch.ops.phase import GROUP_DELAY_CLAMP, _wrap_principal, fft
 from wavespec_tpu_torch.ops.spectrum import band_indices
 from wavespec_tpu_torch.ops.windows import WindowType, window_coefficients
 from wavespec_tpu_torch.signals.followfirst import FollowFirstConfig
+from wavespec_tpu_torch.utils.telemetry import trace, traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +106,9 @@ FRAME_BLOCK = 128
 # and the framed branch's fewer launches win; above, the framed branch's
 # [B, FRAME_BLOCK, window] windows set the tick (PERF.md, section 6).
 SLIDING_MIN_ROWS = 512
+
+# The entry's span; its stages' are ``wavespec.v757.<stage>``.
+SPAN = "wavespec.v757"
 
 
 def _use_sliding(cfg: V757Config, hop: int, device: torch.device, rows: int) -> bool:
@@ -169,22 +176,29 @@ def _band_spectra(series: torch.Tensor, cfg: V757Config, hop: int) -> torch.Tens
     if cfg.resumable:
         if hop != 1:
             raise ValueError("resumable v757 requires hop=1")
-        return _band_spec_resumable(series, cfg)
+        with trace(SPAN + ".frames"):
+            hp, trend = _resumable_hp(series, cfg)
+        with trace(SPAN + ".band_dft"):   # each block's framing and taper included
+            return _band_spec_resumable(series, hp, trend, cfg)
     if _use_sliding(cfg, hop, series.device, _rows(series)):
-        hp = (ehlers_highpass_detrend(series, cfg.trend_period)
-              if cfg.detrend == DetrendMode.EHLERS else series)
-        spec = sliding_band_spec(hp, n, _n_bins(cfg), cfg.taper, k_lo=_gd_lo(cfg))
+        with trace(SPAN + ".frames"):
+            hp = (ehlers_highpass_detrend(series, cfg.trend_period)
+                  if cfg.detrend == DetrendMode.EHLERS else series)
+        with trace(SPAN + ".band_dft"):
+            spec = sliding_band_spec(hp, n, _n_bins(cfg), cfg.taper, k_lo=_gd_lo(cfg))
+            if cfg.detrend == DetrendMode.EHLERS:
+                spec = _minus_rank1(spec, _ehlers_delta(series, series - hp, cfg,
+                                                        spec.shape[-2]), cfg)
+            return spec
+    with trace(SPAN + ".frames"):
         if cfg.detrend == DetrendMode.EHLERS:
-            spec = _minus_rank1(spec, _ehlers_delta(series, series - hp, cfg, spec.shape[-2]),
-                                cfg)
-        return spec
-    if cfg.detrend == DetrendMode.EHLERS:
-        windows = frame_highpassed(series, n, hop, cfg.trend_period)
-    else:   # as the JAX package's framed branch: LINEAR frames the raw series too
-        windows = frame_series(series, n, hop).contiguous()
-    if cfg.taper != WindowType.NONE:
-        windows.mul_(_taper(n, int(cfg.taper), windows.device))
-    return band_dft(windows, _n_bins(cfg))
+            windows = frame_highpassed(series, n, hop, cfg.trend_period)
+        else:   # as the JAX package's framed branch: LINEAR frames the raw series too
+            windows = frame_series(series, n, hop).contiguous()
+        if cfg.taper != WindowType.NONE:
+            windows.mul_(_taper(n, int(cfg.taper), windows.device))
+    with trace(SPAN + ".band_dft"):
+        return band_dft(windows, _n_bins(cfg))
 
 
 def _spectral_frames(series: torch.Tensor, cfg: V757Config, hop: int):
@@ -239,12 +253,13 @@ def _resumable_hp(series: torch.Tensor, cfg: V757Config):
     raise ValueError(f"resumable v757 supports EHLERS/NONE detrend, got {cfg.detrend!r}")
 
 
-def _band_spec_resumable(series: torch.Tensor, cfg: V757Config) -> torch.Tensor:
-    """One-shot spectra ``[..., T, n_bins]`` through the canonical blocks,
-    one `_resumable_block_spec` call a block (never batched together), so
-    that each block's products have the online driver's shapes."""
+def _band_spec_resumable(series: torch.Tensor, hp: torch.Tensor, trend: torch.Tensor,
+                         cfg: V757Config) -> torch.Tensor:
+    """One-shot spectra ``[..., T, n_bins]`` through the canonical blocks
+    (from the series and its `_resumable_hp`), one `_resumable_block_spec`
+    call a block (never batched together), so that each block's products
+    have the online driver's shapes."""
     n, fb = cfg.window, FRAME_BLOCK
-    hp, trend = _resumable_hp(series, cfg)
     t_frames = series.shape[-1] - n + 1
     nblk = -(-t_frames // fb)
     seg_len = n + fb - 1
@@ -321,9 +336,17 @@ def _slots_and_tail(spectral, newest: torch.Tensor, price_prev: torch.Tensor,
     the output dict of `run_v757_batch`, and with `return_state` also the
     final tracker and tail states, which `tracker_init`/`tail_init`
     resume from (`price_prev` is read only without `tail_init`)."""
-    cand_period, cand_power, cand_idx, cand_valid, gd, gd_idx = spectral
-    slots, tracker_state = track_frames(cand_period, cand_power, cand_idx, cand_valid,
-                                        cfg.tracker, init=tracker_init)
+    slots, tracker_state = track_frames(*spectral[:4], cfg.tracker, init=tracker_init)
+    out = _tail(spectral, slots, newest, price_prev, cfg, hop, tail_init, return_state)
+    return (out[0], tracker_state, out[1]) if return_state else out
+
+
+def _tail(spectral, slots: dict, newest: torch.Tensor, price_prev: torch.Tensor,
+          cfg: V757Config, hop: int, tail_init=None, return_state: bool = False):
+    """The tail (kernel B5) and leak ETA of `track_frames`' slots: the
+    output dict, and with `return_state` (the dict, the final tail
+    state)."""
+    gd, gd_idx = spectral[4:]
     lo = _gd_lo(cfg)
     tail = v757_tail(newest, price_prev, slots["slot_period"], slots["slot_valid"],
                      _pick_band(gd, slots["slot_fft_index"], lo), cfg, hop,
@@ -338,14 +361,20 @@ def _slots_and_tail(spectral, newest: torch.Tensor, price_prev: torch.Tensor,
                                  "leak_active", "leak_period")}
     out["leak_eta"] = leak_eta
     out.update(tail)
-    return (out, tracker_state, tail_state) if return_state else out
+    return (out, tail_state) if return_state else out
 
 
 def _v757_batch(series: torch.Tensor, cfg: V757Config, hop: int) -> dict:
-    """The full pipeline over ``series [B, L]`` on its device."""
-    spectral = _spectral_frames(series, cfg, hop)
-    newest, price_prev = _frame_prices(series, cfg, hop, spectral[0].shape[-2])
-    return _slots_and_tail(spectral, newest, price_prev, cfg, hop)
+    """The full pipeline over ``series [B, L]`` on its device, stage by
+    stage (the spans of frames and band_dft are `_band_spectra`'s)."""
+    spec = _band_spectra(series, cfg, hop)
+    with trace(SPAN + ".candidates"):
+        spectral = _cands_and_gd(spec, cfg)
+    with trace(SPAN + ".tracker"):
+        slots, _ = track_frames(*spectral[:4], cfg.tracker)
+    with trace(SPAN + ".tail"):
+        newest, price_prev = _frame_prices(series, cfg, hop, spectral[0].shape[-2])
+        return _tail(spectral, slots, newest, price_prev, cfg, hop)
 
 
 def check_card_limits(cfg: V757Config) -> None:
@@ -369,6 +398,7 @@ def _as_series(series, device) -> torch.Tensor:
                            device=torch.device("cuda") if device is None else device)
 
 
+@traced(SPAN)
 def run_v757_batch(series_batch, cfg: V757Config = V757Config(), hop: int = 1,
                    symbol_chunk: int | None = None,
                    device: torch.device | str | None = None) -> dict[str, torch.Tensor]:

@@ -26,6 +26,7 @@ import math
 import torch
 
 from wavespec_tpu_torch import extract as ex
+from wavespec_tpu_torch.utils.telemetry import traced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +81,7 @@ def _select_slots(attrs: torch.Tensor, cfg: ReconstructConfig):
     return slot_attrs, torch.gather(eligible, -1, rank)
 
 
+@traced("wavespec.decode")
 def decode_causal(attrs: torch.Tensor,
                   cfg: ReconstructConfig = ReconstructConfig()) -> dict:
     """Causal per-window decode: attrs ``[..., nwin, k, 15]`` -> dict of

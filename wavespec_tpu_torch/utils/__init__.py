@@ -1,5 +1,5 @@
-"""Utilities: telemetry (logging, tracing, counters, HUD)."""
+"""Utilities: telemetry (logging, spans, HUD)."""
 
-from wavespec_tpu_torch.utils.telemetry import Hud, ThroughputCounter, tagged_logger, trace
+from wavespec_tpu_torch.utils.telemetry import Hud, tagged_logger, trace, traced
 
-__all__ = ["Hud", "ThroughputCounter", "tagged_logger", "trace"]
+__all__ = ["Hud", "tagged_logger", "trace", "traced"]
