@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
+It builds the port's eight CUDA sources from `wavespec_tpu_torch/csrc/`
 (one nvcc per source, all started together), then:
 
 1. prints the card, its power limit, the TF32 switches (both off) and the
@@ -37,6 +37,13 @@ It builds the port's seven CUDA sources from `wavespec_tpu_torch/csrc/`
      and the final state) and B5 tail (all three ETA modes; floats
      bitwise or to 1e-6 relative, color, states, sig and confluence
      exact), and B4 and B5 resumed from a split against one shot;
+   - G1 candidate step (`check_cand_gd`), bitwise in its six outputs, at
+     shape (c) under the three configurations of the CPU test's
+     `CAND_CFGS`, on planted frames (equal powers, zeros, NaN and
+     infinite bins, ties across the top-24 boundary, phase steps of pi),
+     on the online driver's slice of a block's frames (read in place) and
+     at windows 256, 1024 and 16384; timed at (c) with its plain version
+     and its bound;
    - B4 also on tie-heavy and jittered candidate streams at (J, C, S) =
      (7, 16, 1), (24, 64, 12), (41, 16, 32), (149, 64, 32), and B5 at 1
      and 32 slots, with one signal at a time, without the Kalman filter,
@@ -1026,6 +1033,7 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     from wavespec_tpu_torch.kernels import band_dft as kb
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as kv
+    from wavespec_tpu_torch.kernels.cand_gd import cand_gd_plain
     from wavespec_tpu_torch.ops.spectrum import band_dft_plain
     from wavespec_tpu_torch.ops.windows import window_coefficients
     from wavespec_tpu_torch.pipeline import v757 as pv
@@ -1049,7 +1057,7 @@ def check_v757_kernels(xc, vcfg, dev, tag) -> dict:
     # bins; the candidate lists are therefore held against the float64
     # transform, at the same 99.9%, and no worse than the plain version's.
     spec64 = torch.fft.rfft(windows.double())[..., :n_bins]
-    cands64 = pv._cands_and_gd(spec64, vcfg)[2]
+    cands64 = cand_gd_plain(spec64, vcfg)[2]   # float64: the plain version
     same64 = (cands[2] == cands64).all(-1).float().mean().item()
     same64_plain = (cands_ref[2] == cands64).all(-1).float().mean().item()
     err64 = [((s.to(torch.complex128) - spec64).abs().amax(-1) / spec64.abs().amax(-1)).max().item()
@@ -1200,6 +1208,130 @@ K1_STEP_CYCLES, K1_REGISTER_CYCLES, K1_SHUFFLE_CYCLES = 66, 4, 27
 # these summed over the frames, with the slots in use at each frame's
 # start, at the card's largest SM clock.
 B4S_STEP_CYCLES, B4S_LEVEL_CYCLES, B4S_MEM_STEP_CYCLES, B4S_SLOT_CYCLES = 80, 8, 110, 8
+
+
+CAND_FIELDS = ("cand_period", "cand_power", "cand_idx", "cand_valid", "gd", "gd_idx")
+
+
+def cand_bits_diff(got, want) -> list[str]:
+    """The outputs of the candidate step where two results are not
+    bitwise equal: dtype, shape, or bit patterns (NaN payloads included)."""
+    bad = []
+    for name, a, b in zip(CAND_FIELDS, got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(f"{name} {a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+            continue
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        n = int((a != b).sum())
+        if n:
+            bad.append(f"{name}: {n} of {a.numel()} elements")
+    return bad
+
+
+def planted_cand_frames(spec: torch.Tensor, vcfg) -> torch.Tensor:
+    """Frames 0-7 of the first symbol of ``spec [B, T, n_bins]`` replaced
+    by edge cases of the candidate step: every in-band bin equal; equal
+    powers at four phases (z, iz, -z, -iz); all zero; NaN and infinite
+    bins; every in-band bin NaN; the 20th strongest bin copied onto ten
+    others (ties across the top-24 boundary); phase steps of exactly pi
+    and -2 pi (the fold's boundary); bins of -0.0 among zeros."""
+    from wavespec_tpu_torch.ops.spectrum import band_indices
+
+    k_min, k_max = band_indices(vcfg.window, vcfg.min_period, vcfg.max_period)
+    hi = min(k_max + 1, vcfg.window // 2)
+    s = spec.clone()
+    f = s[0]
+    f[0, k_min:hi] = f[0, (k_min + hi) // 2]
+    z = f[1, k_min + 10]
+    for k in range(k_min, hi):
+        f[1, k] = z * (1j ** (k % 4))
+    f[2] = 0
+    f[3, k_min + 5] = complex(float("nan"), 1.0)
+    f[3, k_min + 20] = complex(2.0, float("nan"))
+    f[3, k_min + 30] = complex(float("inf"), 0.0)
+    f[3, k_min + 31] = complex(float("-inf"), 3.0)
+    f[4, k_min:hi] = complex(float("nan"), float("nan"))
+    power = f[5, k_min:hi].abs()
+    twentieth = k_min + int(power.argsort(descending=True)[19])
+    f[5, k_min:k_min + 40:4] = f[5, twentieth]
+    for k in range(k_min - 1, hi + 2):
+        f[6, k] = complex(1.0 if k % 3 == 0 else -1.0, 0.0 if k % 2 else -0.0)
+    f[7] = 0
+    f[7, k_min + 3::7] = complex(-0.0, -0.0)
+    return s
+
+
+def check_cand_gd(xc, vcfg, dev, tag) -> dict:
+    """G1, the candidate step (`kernels/cand_gd.py`), against its plain
+    version on the card, bitwise in all six outputs: at shape (c) (the
+    framed route's band spectra of `bench_series`) under the three
+    configurations of `tests/test_torch_v757_ops.py::CAND_CFGS` (the top
+    24 in the phase mode, every in-band bin with REALFFT, the top 12 with
+    HYBRID); on `planted_cand_frames`; on the online driver's slice of
+    frames of a block (read in place) and on frames over three strides
+    (copied first); on random spectra at windows 256, 1024 and 16384.
+    Times G1 at (c) beside its bound and the plain version, each in a CUDA
+    graph; returns the kernel's record fields."""
+    from wavespec_tpu_torch.analyze.eta import EtaMode
+    from wavespec_tpu_torch.kernels import cand_gd as kg
+    from wavespec_tpu_torch.pipeline import v757 as pv
+
+    cfgs = {"top24": vcfg,
+            "all_bins": dataclasses.replace(vcfg, n_candidates=0, eta_mode=EtaMode.REALFFT),
+            "hybrid12": dataclasses.replace(vcfg, n_candidates=12, eta_mode=EtaMode.HYBRID)}
+    spec = pv._band_spectra(xc, vcfg, 1)
+    planted = planted_cand_frames(spec[:2], vcfg)
+    block = spec[:, :pv.FRAME_BLOCK]
+    cases = {"(c)": spec, "planted": planted,
+             "online slice": block[..., 37:37 + 16, :],
+             "three strides": spec.view(spec.shape[0], 2, -1, spec.shape[-1])[::2, :, :100]}
+    rng = np.random.default_rng(SEED)
+    failed, checked = [], 0
+    for label, x in cases.items():
+        for name, c in cfgs.items():
+            before = kg.cand_gd.launches
+            got, want = kg.cand_gd(x, c), kg.cand_gd_plain(x, c)
+            torch.cuda.synchronize()
+            bad = cand_bits_diff(got, want)
+            if kg.cand_gd.launches != before + 1:
+                bad.append("not launched once")
+            if bad:
+                failed.append(f"{label} {name}: {bad}")
+            checked += 1
+    for window in (256, 1024, 16384):
+        wcfg = dataclasses.replace(vcfg, window=window, trend_period=window // 4)
+        n_bins = pv._n_bins(wcfg)
+        x = torch.from_numpy((rng.standard_normal((1000, n_bins))
+                              + 1j * rng.standard_normal((1000, n_bins))).astype(np.complex64))
+        x = x.to(dev)
+        for name, c in cfgs.items():
+            c = dataclasses.replace(wcfg, n_candidates=c.n_candidates, eta_mode=c.eta_mode)
+            bad = cand_bits_diff(kg.cand_gd(x, c), kg.cand_gd_plain(x, c))
+            if bad:
+                failed.append(f"window {window} {name}: {bad}")
+            checked += 1
+    torch.cuda.synchronize()
+    slice_x = cases["online slice"]
+    log(f"G1 cand_gd: {checked} cases against the plain version on the card "
+        f"({', '.join(cases)} x {', '.join(cfgs)}; windows 256, 1024, 16384), "
+        f"{len(failed)} not bitwise equal; the online slice {tuple(slice_x.shape)} at strides "
+        f"{kg.frame_layout(slice_x)[2:]} read in place")
+    if failed:
+        raise AssertionError("G1 cand_gd differs from its plain version: " + "; ".join(failed))
+    outs = kg.cand_gd(spec, vcfg)
+    p = kg.plan(spec, vcfg)
+    rows = spec.numel() // spec.shape[-1]
+    n_bytes = rows * p.nb * 8 + nbytes(*outs)
+    # device time: the wrapper's host time (some 60 us) is near the kernel's
+    rec = dict(max_abs_err=0.0, ms=graph_ms(lambda: kg.cand_gd(spec, vcfg)),
+               plain_ms=graph_ms(lambda: kg.cand_gd_plain(spec, vcfg), calls=3),
+               library_ms=None, bound=bound(n_bytes, 0.0))
+    log(f"G1 cand_gd at (c) {tuple(spec.shape)}, {p.nb} group-delay bins, top "
+        f"{vcfg.n_candidates}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+        f"(CUDA graphs of 10 and 3 calls, median of 5), bound {rec['bound'][0]:.4f} ms "
+        f"({n_bytes / 1e6:.1f} MB, {rec['bound'][1]}) {tag}")
+    return rec
 
 
 def sm_clock_hz() -> float:
@@ -1753,6 +1885,7 @@ def sliding_route(dev, tag, counters, reset_counts) -> dict:
     """Phase (g) of `live_v757`: returns the launches of its path."""
     from wavespec_tpu_torch import V757Config, run_v757_batch
     from wavespec_tpu_torch.extract import frame_highpassed
+    from wavespec_tpu_torch.kernels.cand_gd import cand_gd_plain
     from wavespec_tpu_torch.ops.windows import window_coefficients
     from wavespec_tpu_torch.pipeline import v757 as pv
     from wavespec_tpu_torch.testing import v757_readings
@@ -1774,12 +1907,12 @@ def sliding_route(dev, tag, counters, reset_counts) -> dict:
     w64.mul_(window_coefficients(WINDOW, slide.taper, torch.float64, dev))
     spec64 = torch.fft.rfft(w64)[..., :n_bins]
     del w64
-    idx64 = pv._cands_and_gd(spec64, slide)[2]
+    idx64 = cand_gd_plain(spec64, slide)[2]   # float64: the plain version
     # B3's reference, read for the record: the float64 rfft of the framed
     # route's own float32 windows
     windows = frame_highpassed(xc, WINDOW, 1, slide.trend_period)
     windows.mul_(window_coefficients(WINDOW, slide.taper, device=dev))
-    idx_b3 = pv._cands_and_gd(torch.fft.rfft(windows.double())[..., :n_bins], slide)[2]
+    idx_b3 = cand_gd_plain(torch.fft.rfft(windows.double())[..., :n_bins], slide)[2]
     del windows
     held = {}
     for name, c in (("sliding", slide), ("framed", framed)):
@@ -3802,6 +3935,7 @@ def main() -> None:
     from wavespec_tpu_torch.kernels import jacobi as kj
     from wavespec_tpu_torch.kernels import kalman_weights as kkw
     from wavespec_tpu_torch.kernels import music_select as ks
+    from wavespec_tpu_torch.kernels import cand_gd as kg
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as ktail
     from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_bins
@@ -3815,7 +3949,7 @@ def main() -> None:
                 "band_dft": kb.band_dft, "tracker": kt.track_frames_kernel,
                 "v757_tail": ktail.v757_tail, "hopped_dft": kh.rfft_band_hopped,
                 "kalman_weights": kkw.kalman_weights_kernel,
-                "tracker_sequential": kt.sequential_mode}
+                "tracker_sequential": kt.sequential_mode, "cand_gd": kg.cand_gd}
 
     def reset_counts():
         for fn in counters.values():
@@ -3848,7 +3982,7 @@ def main() -> None:
     t_build = time.perf_counter()
     libs = {"jacobi_eigh": kj._lib, "music_select": ks._lib, "band_dft": kb._lib,
             "tracker": kt._lib, "v757_tail": ktail._lib, "hopped_dft": kh._lib,
-            "kalman_weights": kkw._lib}
+            "kalman_weights": kkw._lib, "cand_gd": kg._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         build_s = dict(zip(libs, pool.map(build, libs.values())))
     log(f"kernels built in parallel and loaded from wavespec_tpu_torch/csrc/ in "
@@ -4066,6 +4200,7 @@ def main() -> None:
                     "music_select": dict(b2_times["a"], library_ms=None,
                                          max_abs_err=max_abs["music_select"])}
     kernel_times.update(check_v757_kernels(xc, vcfg, dev, tag))
+    kernel_times["cand_gd"] = check_cand_gd(xc, vcfg, dev, tag)
     kernel_times["hopped_dft"] = check_hopped_dft(dev, tag)
     kernel_times["kalman_weights"] = check_kalman_weights(dev, tag)
     kernel_times["tracker_sequential"] = check_sequential_tracker(dev, tag)
@@ -4096,7 +4231,8 @@ def main() -> None:
     run_v757_batch(xc, vcfg)
     torch.cuda.synchronize()
 
-    music_kernels, v757_kernels = ("jacobi_eigh", "music_select"), ("band_dft", "tracker", "v757_tail")
+    music_kernels, v757_kernels = ("jacobi_eigh", "music_select"), ("band_dft", "cand_gd", "tracker",
+                                                                 "v757_tail")
     reset_counts()
     outputs = {}
     for name, (x, hop, nwin) in shapes.items():
@@ -4251,6 +4387,8 @@ def main() -> None:
         "hopped_dft": "wavespec_tpu/kernels/hopped_dft.py:126",
         "kalman_weights": "wavespec_tpu/filters/kalman_weights.py:57",
         "tracker_sequential": "wavespec_tpu/analyze/trackers.py:133",
+        # no Pallas kernel: the JAX package leaves the step to XLA's lax.top_k
+        "cand_gd": "wavespec_tpu/pipeline/v757.py:364",
     }
     records = []
     for name, replaces in sources.items():

@@ -17,6 +17,7 @@ from torch.profiler import ProfilerActivity, profile
 from wavespec_tpu_torch.extract import ExtractConfig, Method, extract_cycles_batch
 from wavespec_tpu_torch.filters.kalman_weights import KalmanWeightsConfig
 from wavespec_tpu_torch.kernels.band_dft import band_dft
+from wavespec_tpu_torch.kernels.cand_gd import cand_gd
 from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
 from wavespec_tpu_torch.kernels.jacobi import jacobi_eigh_unsorted
 from wavespec_tpu_torch.kernels.kalman_weights import kalman_weights_kernel
@@ -99,7 +100,7 @@ def _decode():
 
 ENTRIES = {
     "v757": (_v757, "wavespec.v757",
-             [("frames", None), ("band_dft", "B3"), ("candidates", None), ("tracker", "B4"),
+             [("frames", None), ("band_dft", "B3"), ("candidates", "G1"), ("tracker", "B4"),
               ("tail", "B5")]),
     "music": (_music, "wavespec.extract",
               [("music.frames", None), ("music.subspace", "B1"), ("music.select", "B2"),
@@ -130,6 +131,7 @@ def test_decode_has_its_entry_span():
 KERNELS = {
     "B1": lambda: jacobi_eigh_unsorted(torch.eye(4).repeat(2, 1, 1) + 0.1),
     "B3": lambda: band_dft(_series(64, 4, (2,)), 10),
+    "G1": lambda: cand_gd(torch.complex(_series(17, 8, (3,)), _series(17, 9, (3,))), V757_CFG),
     "H1": lambda: rfft_band_hopped(_series(1024 + 4 * 16, 5), 1024, 16, 20),
     "K1": lambda: kalman_weights_kernel(_series(64 * 8, 6).reshape(64, 8), _series(64, 7),
                                         KalmanWeightsConfig()),

@@ -33,18 +33,16 @@ import numpy as np
 import torch
 
 from wavespec_tpu_torch.analyze.eta import EtaMode, leak_eta_bars
-from wavespec_tpu_torch.analyze.music import topk_stable
 from wavespec_tpu_torch.analyze.trackers import TrackerConfig, track_frames
 from wavespec_tpu_torch.extract import DetrendMode, frame_highpassed, frame_series
 from wavespec_tpu_torch.filters.kalman4d import Kalman4DConfig
 from wavespec_tpu_torch.kernels.band_dft import band_dft
+from wavespec_tpu_torch.kernels.cand_gd import _gd_lo, cand_gd
 from wavespec_tpu_torch.kernels.sliding_dft import (_fresh, sliding_band_spec, taper_harmonics,
                                                     tapered_dft_of)
 from wavespec_tpu_torch.kernels.v757_tail import v757_tail
-from wavespec_tpu_torch.ops.arith import rdiv, sdiv
 from wavespec_tpu_torch.ops.detrend import (_ehlers_consts, ehlers_highpass_blocked,
                                             ehlers_highpass_detrend)
-from wavespec_tpu_torch.ops.phase import GROUP_DELAY_CLAMP, _wrap_principal, fft_phase
 from wavespec_tpu_torch.ops.spectrum import band_indices
 from wavespec_tpu_torch.ops.windows import WindowType, window_coefficients
 from wavespec_tpu_torch.signals.followfirst import FollowFirstConfig
@@ -81,12 +79,6 @@ class V757Config:
     enable_kalman: bool = True
     kalman: Kalman4DConfig = Kalman4DConfig()
     followfirst: FollowFirstConfig = FollowFirstConfig()
-
-
-def _gd_lo(cfg: V757Config) -> int:
-    """First absolute bin of the band-sliced group-delay arrays."""
-    k_min, _ = band_indices(cfg.window, cfg.min_period, cfg.max_period)
-    return max(k_min - 1, 0)
 
 
 def _n_bins(cfg: V757Config) -> int:
@@ -270,45 +262,10 @@ def _band_spec_resumable(series: torch.Tensor, hp: torch.Tensor, trend: torch.Te
     return torch.cat(blocks, dim=-2)[..., :t_frames, :]
 
 
-def _cands_and_gd(spec: torch.Tensor, cfg: V757Config):
-    """(cand_period, cand_power, cand_idx int32, cand_valid, gd, gd_idx)
-    from band spectra ``[..., T, n_bins]``: candidates ``[..., T, J]``,
-    the group delay band-sliced from `_gd_lo` (gd in the ETA mode's
-    convention, gd_idx in FFT-index units, clamped to +/-100)."""
-    n = cfg.window
-    k_min, k_max = band_indices(n, cfg.min_period, cfg.max_period)
-    hi = min(k_max + 1, n // 2)
-    re, im = spec.real, spec.imag
-    power = re * re + im * im
-    inband = power[..., k_min:hi]
-    if cfg.n_candidates == 0:
-        cand_idx = torch.arange(k_min, hi, dtype=torch.int32, device=spec.device)
-        cand_idx = cand_idx.expand(inband.shape).contiguous()
-        cand_power = inband.contiguous()
-        cand_valid = torch.ones_like(cand_power, dtype=torch.bool)
-        cand_period = rdiv(float(n), cand_idx.to(torch.float32))
-    else:
-        # stable descending sort: ties in index order, as jax.lax.top_k
-        cand_power, cand_idx = topk_stable(inband, min(cfg.n_candidates, hi - k_min))
-        cand_power = cand_power.contiguous()
-        cand_idx = (cand_idx + k_min).to(torch.int32)
-        cand_valid = cand_power > 0
-        cand_period = torch.where(
-            cand_valid, rdiv(float(n), torch.clamp(cand_idx.to(torch.float32), min=1.0)), 0.0)
-
-    # group delay from wrapped phase differences over [gd_lo, k_max + 2]
-    lo = _gd_lo(cfg)
-    hi_p = min(k_max + 2, spec.shape[-1] - 1)
-    d = _wrap_principal(torch.diff(fft_phase(spec[..., lo:hi_p + 1]), dim=-1))
-    g = torch.cat([d[..., :1], 0.5 * (d[..., 1:] + d[..., :-1]), d[..., -1:]], dim=-1)
-    gd_idx = torch.clamp(-g, -GROUP_DELAY_CLAMP, GROUP_DELAY_CLAMP)
-    if cfg.eta_mode == EtaMode.REALFFT:
-        gd = sdiv(-g, 2.0 * np.pi / (n // 2))   # the full n/2 length
-    elif cfg.eta_mode == EtaMode.HYBRID:
-        gd = gd_idx
-    else:
-        gd = torch.zeros_like(gd_idx)           # the phase mode never reads it
-    return cand_period, cand_power, cand_idx, cand_valid, gd, gd_idx
+# (cand_period, cand_power, cand_idx, cand_valid, gd, gd_idx) of band
+# spectra ``[..., T, n_bins]``, under the JAX package's name: kernel G1 on
+# the card, its plain version on the CPU (`kernels/cand_gd.py`)
+_cands_and_gd = cand_gd
 
 
 def _pick_band(x: torch.Tensor, bins: torch.Tensor, lo: int) -> torch.Tensor:

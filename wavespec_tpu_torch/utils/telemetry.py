@@ -18,7 +18,7 @@ Spans cost a flag check unless a `torch.profiler` is recording: an
 operator turns them on by running one around the calls (`profile_step.py`
 does). Recording, a span is a host range on the profiler's timeline,
 named ``wavespec.<entry>`` for an entry point, ``wavespec.<entry>.<stage>``
-for a stage of it and ``wavespec.kernel.<B1..K1>`` for a hand-written
+for a stage of it and ``wavespec.kernel.<B1..K1, G1>`` for a hand-written
 kernel's wrapper (its plain version on the CPU included); the spans of one
 call nest under its entry's. The profiler links each kernel to the host
 operator, or span, that launched it, so a stage's device time and launches
