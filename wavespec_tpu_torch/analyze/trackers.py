@@ -25,6 +25,8 @@ from typing import NamedTuple
 
 import torch
 
+from wavespec_tpu_torch.utils.telemetry import recording
+
 BIG = 1e30
 IMAX = 2**31 - 1
 
@@ -290,9 +292,13 @@ def track_frames(cand_periods, cand_powers, cand_fft_idx, cand_valid,
     from a prior call's final state: chunked runs equal the one-shot run
     bitwise. Kernel B4 for CUDA tensors, in its sequential mode B4s for
     the reference-exact matcher (`sequential_match`);
-    `track_frames_plain` on the CPU.
+    `track_frames_plain` on the CPU. While the port's tracing is on
+    (`telemetry.recording`), B4s also counts its symbol-frames and those
+    that left its fast step in `kernels.tracker.fast_step`; off, nothing
+    is counted, allocated or passed.
     """
-    from wavespec_tpu_torch.kernels.tracker import track_frames_kernel
+    from wavespec_tpu_torch.kernels.tracker import fast_step, track_frames_kernel
 
-    return track_frames_kernel(cand_periods, cand_powers, cand_fft_idx,
-                               cand_valid, cfg, init)
+    counted = cfg.sequential_match and cand_periods.is_cuda and recording()
+    return track_frames_kernel(cand_periods, cand_powers, cand_fft_idx, cand_valid, cfg, init,
+                               general_frames=fast_step.take(cand_periods) if counted else None)

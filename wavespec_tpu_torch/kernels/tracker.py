@@ -14,11 +14,16 @@ the plain version; a CUDA tensor goes to the kernel, with no fallback.
 symbol-frames whose sequential steps left the fast step (`seq_fast`):
 a frame not sure of its tie rule, or more rows in use than the
 sequential matcher keeps in registers (`TrackerPlan.seq_rows` slots).
+`fast_step` keeps that count, and the symbol-frames B4s ran, for the
+calls that `analyze.trackers.track_frames` makes while the port's
+tracing is on. The vectorized mode runs under the span
+``wavespec.kernel.B4``, the sequential one under ``wavespec.kernel.B4s``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from types import SimpleNamespace
 from typing import NamedTuple
 
@@ -27,7 +32,7 @@ import torch
 from wavespec_tpu_torch.analyze.trackers import (
     SLOT_FIELDS, TrackerConfig, TrackerState, init_state, track_frames_plain)
 from wavespec_tpu_torch.kernels._build import check, load_library
-from wavespec_tpu_torch.utils.telemetry import traced
+from wavespec_tpu_torch.utils.telemetry import trace
 
 # The register geometry's thresholds (8 capacity rows and 2 slots a lane
 # in registers); past either, the kernel's memory geometry takes over.
@@ -175,16 +180,21 @@ def _require(name: str, x: torch.Tensor, dtype: torch.dtype, shape, device) -> N
         raise ValueError(f"{name} must be contiguous")
 
 
-@traced("wavespec.kernel.B4")
 def track_frames_kernel(periods: torch.Tensor, powers: torch.Tensor,
                         fft_idx: torch.Tensor, valid: torch.Tensor,
                         cfg: TrackerConfig, init: TrackerState | None = None,
                         general_frames: torch.Tensor | None = None):
     """(dict of ``[..., T, S]`` slot outputs, final `TrackerState`), in
     `cfg`'s matcher: the vectorized mode (B4) or the sequential mode (B4s),
-    each counting its launches. On the card `general_frames` (one int32 on
-    the candidates' device, or None) gains the sequential mode's
-    symbol-frames that left the fast step; the CPU route leaves it."""
+    each counting its launches and under its own span. On the card
+    `general_frames` (one int32 on the candidates' device, or None) gains
+    the sequential mode's symbol-frames that left the fast step; the CPU
+    route leaves it."""
+    with trace("wavespec.kernel.B4s" if cfg.sequential_match else "wavespec.kernel.B4"):
+        return _track_frames(periods, powers, fft_idx, valid, cfg, init, general_frames)
+
+
+def _track_frames(periods, powers, fft_idx, valid, cfg, init, general_frames):
     if not periods.is_cuda:
         return track_frames_plain(periods, powers, fft_idx, valid, cfg, init)
     if general_frames is not None and (general_frames.dtype != torch.int32
@@ -248,3 +258,35 @@ track_frames_kernel.launches = 0
 # the launch count of the sequential mode (B4s), apart from the vectorized
 # mode's `track_frames_kernel.launches`
 sequential_mode = SimpleNamespace(launches=0)
+
+
+class FastStepCount:
+    """B4s's two counts until `reset`: the symbol-frames it ran (`frames`,
+    on the host) and those whose steps left the fast step (on the card, in
+    one int32 a device that the kernel adds to; `read` copies them to the
+    host). Nothing is allocated until `take`."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.frames = 0
+        self._left: dict[torch.device, torch.Tensor] = {}
+
+    def take(self, periods: torch.Tensor) -> torch.Tensor:
+        """Count the symbol-frames of candidates ``[..., T, J]`` and return
+        the int32 on their device that the launch gains the frames past
+        the fast step in (its `general_frames`)."""
+        self.frames += math.prod(periods.shape[:-1])
+        left = self._left.get(periods.device)
+        if left is None:
+            left = self._left[periods.device] = torch.zeros(1, dtype=torch.int32,
+                                                            device=periods.device)
+        return left
+
+    def read(self) -> tuple[int, int]:
+        """(symbol-frames run, symbol-frames past the fast step)."""
+        return self.frames, sum(int(t) for t in self._left.values())
+
+
+fast_step = FastStepCount()

@@ -19,7 +19,8 @@ operator turns them on by running one around the calls (`profile_step.py`
 does). Recording, a span is a host range on the profiler's timeline,
 named ``wavespec.<entry>`` for an entry point, ``wavespec.<entry>.<stage>``
 for a stage of it and ``wavespec.kernel.<B1..K1, G1>`` for a hand-written
-kernel's wrapper (its plain version on the CPU included); the spans of one
+kernel's wrapper (its plain version on the CPU included; the tracker's
+sequential mode is ``wavespec.kernel.B4s``); the spans of one
 call nest under its entry's. The profiler links each kernel to the host
 operator, or span, that launched it, so a stage's device time and launches
 are those of the kernels launched inside it (`span_totals`).
@@ -46,6 +47,12 @@ SPAN_PREFIX = "wavespec."
 def tagged_logger(tag: str) -> logging.Logger:
     """Logger named like the reference's `[WaveSpecZZ][TAG]` convention."""
     return _ROOT.getChild(tag.upper())
+
+
+def recording() -> bool:
+    """Whether a `torch.profiler` is recording: the gate of the spans and
+    of the counters that only tracing pays for."""
+    return _profiler._is_profiler_enabled
 
 
 def trace(name: str, step: int | None = None):
