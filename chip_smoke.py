@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the port's eight CUDA sources from `wavespec_tpu_torch/csrc/`
+It builds the port's nine CUDA sources from `wavespec_tpu_torch/csrc/`
 (one nvcc per source, all started together), then:
 
 1. prints the card, its power limit, the TF32 switches (both off) and the
@@ -44,6 +44,12 @@ It builds the port's eight CUDA sources from `wavespec_tpu_torch/csrc/`
      on the online driver's slice of a block's frames (read in place) and
      at windows 256, 1024 and 16384; timed at (c) with its plain version
      and its bound;
+   - F1 frame matrix (`check_ehlers_frames`), bitwise against its plain
+     version (the eager `frame_highpassed` and taper) at shape (c), at
+     (i16k) (window 16384), at hop 3 with and without the taper and at a
+     window of 1001 samples; the kernel alone timed at (c) and (i16k) with
+     its bound, beside the plain chain and the whole stage (the
+     series-level high-pass and F1);
    - B4 also on tie-heavy and jittered candidate streams at (J, C, S) =
      (7, 16, 1), (24, 64, 12), (41, 16, 32), (149, 64, 32), and B5 at 1
      and 32 slots, with one signal at a time, without the Kalman filter,
@@ -1334,6 +1340,68 @@ def check_cand_gd(xc, vcfg, dev, tag) -> dict:
     return rec
 
 
+def check_ehlers_frames(xc, vcfg, dev, tag) -> dict:
+    """F1, the framed route's frame matrix (`kernels/ehlers_frames.py`),
+    bitwise against its plain version on the card: at shape (c) (`xc`,
+    `vcfg`), at (i16k) (`bench_series` at window 16384), at hop 3 over 16
+    symbols with and without the taper, and at window 1001 (the kernel's
+    one-sample path). Times the kernel alone (the high-pass computed
+    before) at (c) and (i16k) with CUDA events, median of 5 runs of 10
+    calls, beside its bound (the matrix's write) and the plain chain;
+    returns the kernel's record fields at (c)."""
+    from wavespec_tpu_torch.extract import _series_highpass
+    from wavespec_tpu_torch.kernels import ehlers_frames as kf
+    from wavespec_tpu_torch.ops.windows import window_coefficients
+
+    def series(symbols, frames, window, hop):
+        rng = np.random.default_rng(SEED + hop)
+        n = window + (frames - 1) * hop
+        x = 100.0 + np.cumsum(0.01 * rng.standard_normal((symbols, n)), axis=-1)
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    trend, taper = vcfg.trend_period, int(vcfg.taper)
+    x16k = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES, 16384)).to(dev)
+    cases = {"(c)": (xc, WINDOW, 1, taper), "(i16k)": (x16k, 16384, 1, taper),
+             "hop 3": (series(16, 301, WINDOW, 3), WINDOW, 3, taper),
+             "hop 3, no taper": (series(16, 301, WINDOW, 3), WINDOW, 3, 0),
+             "window 1001": (series(8, 37, 1001, 2), 1001, 2, taper)}
+    failed, rec = [], {}
+    for label, (x, window, hop, tp) in cases.items():
+        table = window_coefficients(window, tp, device=dev) if tp else None
+        before = kf.ehlers_frames.launches
+        got = kf.ehlers_frames(x, window, hop, trend, table)
+        want = kf.ehlers_frames_plain(x, window, hop, trend, table)
+        torch.cuda.synchronize()
+        n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if n or kf.ehlers_frames.launches != before + 1:
+            failed.append(f"{label}: {n} of {got.numel()} samples differ, "
+                          f"{kf.ehlers_frames.launches - before} launches")
+        del got, want
+        if label not in ("(c)", "(i16k)"):
+            continue
+        hp = _series_highpass(trend, dev)(x)[..., 0, :]
+        ms = cuda_ms(lambda: kf._f1(x, hp, window, hop, trend, table), per_run=10)
+        plain_ms = cuda_ms(lambda: kf.ehlers_frames_plain(x, window, hop, trend, table),
+                           per_run=3)
+        stage_ms = cuda_ms(lambda: kf.ehlers_frames(x, window, hop, trend, table), per_run=10)
+        frames = kf.n_frames(x.shape[-1], window, hop)
+        n_bytes = x.shape[0] * frames * window * 4
+        b = bound(n_bytes, 0.0)
+        log(f"F1 ehlers_frames at {label} {(x.shape[0], frames, window)}: kernel {ms:.4f} ms "
+            f"({b[0] / ms:.1%} of its bound {b[0]:.4f} ms, {n_bytes / 2**30:.2f} GiB written, "
+            f"{b[1]}), plain chain {plain_ms:.4f} ms, the stage (high-pass and F1) "
+            f"{stage_ms:.4f} ms (CUDA events, median of 5) {tag}")
+        if label == "(c)":
+            rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=b)
+        del hp
+    del x16k, cases
+    log(f"F1 ehlers_frames: {len(failed)} of 5 shapes not bitwise equal to the plain version")
+    if failed:
+        raise AssertionError("F1 ehlers_frames differs from its plain version: "
+                             + "; ".join(failed))
+    return rec
+
+
 def sm_clock_hz() -> float:
     """The card's largest SM clock, as `nvidia-smi` reads it."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -2121,7 +2189,7 @@ def online_fleet(dev, tag, counters, reset_counts) -> tuple[dict, dict]:
 
 def branch_sweep(bars: np.ndarray, tag: str) -> dict:
     """A one-bar tick of the resumable stage's two branches at 128, 256,
-    512 and 1024 symbols (the first rows of `bars`): 40 ticks timed one by
+    512 and 1024 symbols (the first rows of `bars`): 24 ticks timed one by
     one between CUDA events after `WINDOW` + 69 bars, each branch twice,
     taken framed, sliding, sliding, framed. Returns {symbols: {branch:
     [median ms, median ms]}}; the data behind `SLIDING_MIN_ROWS`."""
@@ -2134,9 +2202,9 @@ def branch_sweep(bars: np.ndarray, tag: str) -> dict:
         for name in ("framed", "sliding", "sliding", "framed"):
             drv = V757OnlineDriver(V757Config(resumable=True, sliding_spectral=name == "sliding"),
                                    batch=b)
-            dev_ms, _, _ = feed(drv, bars[:b, :WINDOW + 109], [WINDOW + 69] + [1] * 40, 1)
+            dev_ms, _, _ = feed(drv, bars[:b, :WINDOW + 93], [WINDOW + 69] + [1] * 24, 1)
             out[b][name].append(statistics.median(dev_ms))
-        log(f"(h) branch sweep, {b} symbols, one-bar tick (CUDA events, median of 40 ticks, "
+        log(f"(h) branch sweep, {b} symbols, one-bar tick (CUDA events, median of 24 ticks, "
             f"two readings each): " + "; ".join(
                 f"{name} {', '.join(f'{v:.3f}' for v in t)} ms" for name, t in out[b].items())
             + f" {tag}")
@@ -3936,6 +4004,7 @@ def main() -> None:
     from wavespec_tpu_torch.kernels import kalman_weights as kkw
     from wavespec_tpu_torch.kernels import music_select as ks
     from wavespec_tpu_torch.kernels import cand_gd as kg
+    from wavespec_tpu_torch.kernels import ehlers_frames as kf
     from wavespec_tpu_torch.kernels import tracker as kt
     from wavespec_tpu_torch.kernels import v757_tail as ktail
     from wavespec_tpu_torch.ops.spectrum import power_spectrum, rfft_bins
@@ -3949,7 +4018,8 @@ def main() -> None:
                 "band_dft": kb.band_dft, "tracker": kt.track_frames_kernel,
                 "v757_tail": ktail.v757_tail, "hopped_dft": kh.rfft_band_hopped,
                 "kalman_weights": kkw.kalman_weights_kernel,
-                "tracker_sequential": kt.sequential_mode, "cand_gd": kg.cand_gd}
+                "tracker_sequential": kt.sequential_mode, "cand_gd": kg.cand_gd,
+                "ehlers_frames": kf.ehlers_frames}
 
     def reset_counts():
         for fn in counters.values():
@@ -3982,7 +4052,7 @@ def main() -> None:
     t_build = time.perf_counter()
     libs = {"jacobi_eigh": kj._lib, "music_select": ks._lib, "band_dft": kb._lib,
             "tracker": kt._lib, "v757_tail": ktail._lib, "hopped_dft": kh._lib,
-            "kalman_weights": kkw._lib, "cand_gd": kg._lib}
+            "kalman_weights": kkw._lib, "cand_gd": kg._lib, "ehlers_frames": kf._lib}
     with ThreadPoolExecutor(len(libs)) as pool:
         build_s = dict(zip(libs, pool.map(build, libs.values())))
     log(f"kernels built in parallel and loaded from wavespec_tpu_torch/csrc/ in "
@@ -4201,6 +4271,7 @@ def main() -> None:
                                          max_abs_err=max_abs["music_select"])}
     kernel_times.update(check_v757_kernels(xc, vcfg, dev, tag))
     kernel_times["cand_gd"] = check_cand_gd(xc, vcfg, dev, tag)
+    kernel_times["ehlers_frames"] = check_ehlers_frames(xc, vcfg, dev, tag)
     kernel_times["hopped_dft"] = check_hopped_dft(dev, tag)
     kernel_times["kalman_weights"] = check_kalman_weights(dev, tag)
     kernel_times["tracker_sequential"] = check_sequential_tracker(dev, tag)
@@ -4231,8 +4302,8 @@ def main() -> None:
     run_v757_batch(xc, vcfg)
     torch.cuda.synchronize()
 
-    music_kernels, v757_kernels = ("jacobi_eigh", "music_select"), ("band_dft", "cand_gd", "tracker",
-                                                                 "v757_tail")
+    music_kernels = ("jacobi_eigh", "music_select")
+    v757_kernels = ("ehlers_frames", "band_dft", "cand_gd", "tracker", "v757_tail")
     reset_counts()
     outputs = {}
     for name, (x, hop, nwin) in shapes.items():
@@ -4389,6 +4460,8 @@ def main() -> None:
         "tracker_sequential": "wavespec_tpu/analyze/trackers.py:133",
         # no Pallas kernel: the JAX package leaves the step to XLA's lax.top_k
         "cand_gd": "wavespec_tpu/pipeline/v757.py:364",
+        # no Pallas kernel: the JAX package builds these frames in XLA
+        "ehlers_frames": "wavespec_tpu/extract.py:464",
     }
     records = []
     for name, replaces in sources.items():

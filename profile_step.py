@@ -47,10 +47,10 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent
 # The hand-written kernels by their CUDA names: B1, B2, B3, B4 (B4s is
-# `tracker_kernel` too), B5, H1's two kernels, K1's two geometries, G1.
+# `tracker_kernel` too), B5, H1's two kernels, K1's two geometries, G1, F1.
 HAND_KERNELS = ("jacobi_eigh_kernel", "music_select_kernel", "band_dft_kernel",
                 "tracker_kernel", "v757_tail_kernel", "rows_kernel", "tile_kernel",
-                "kalman_regs", "kalman_wide", "cand_gd_kernel")
+                "kalman_regs", "kalman_wide", "cand_gd_kernel", "ehlers_frames_kernel")
 
 
 def main() -> None:

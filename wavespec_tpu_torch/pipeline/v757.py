@@ -8,13 +8,14 @@
   leak ETA.
 
 The band spectra take one of three routes (`_band_spectra`): the
-framed route (per-window cold-start high-pass, taper, band DFT by kernel
-B3), the chunked sliding DFT (`kernels/sliding_dft.py`, hop 1, EHLERS or
-NONE detrend, a cosine-sum taper; the per-window cold start enters as a
-rank-1 correction), and the resumable route (`V757Config.resumable`):
-canonical blocks of `FRAME_BLOCK` frames, each computed alone with fixed
-operand shapes on a block-resumable high-pass, which the online driver
-(`pipeline/online.py`) recomputes tick by tick and equals bitwise.
+framed route (per-window cold-start high-pass and taper, by kernel F1
+with EHLERS detrend; band DFT by kernel B3), the chunked sliding DFT
+(`kernels/sliding_dft.py`, hop 1, EHLERS or NONE detrend, a cosine-sum
+taper; the per-window cold start enters as a rank-1 correction), and
+the resumable route (`V757Config.resumable`): canonical blocks of
+`FRAME_BLOCK` frames, each computed alone with fixed operand shapes on a
+block-resumable high-pass, which the online driver (`pipeline/online.py`)
+recomputes tick by tick and equals bitwise.
 
 `run_v757_batch` and `run_v757` are the entry points. They run on the
 card unless the caller passes ``device="cpu"`` (or a CPU tensor); on the
@@ -34,10 +35,11 @@ import torch
 
 from wavespec_tpu_torch.analyze.eta import EtaMode, leak_eta_bars
 from wavespec_tpu_torch.analyze.trackers import TrackerConfig, track_frames
-from wavespec_tpu_torch.extract import DetrendMode, frame_highpassed, frame_series
+from wavespec_tpu_torch.extract import DetrendMode, frame_series
 from wavespec_tpu_torch.filters.kalman4d import Kalman4DConfig
 from wavespec_tpu_torch.kernels.band_dft import band_dft
 from wavespec_tpu_torch.kernels.cand_gd import _gd_lo, cand_gd
+from wavespec_tpu_torch.kernels.ehlers_frames import ehlers_frames
 from wavespec_tpu_torch.kernels.sliding_dft import (_fresh, sliding_band_spec, taper_harmonics,
                                                     tapered_dft_of)
 from wavespec_tpu_torch.kernels.v757_tail import v757_tail
@@ -183,12 +185,13 @@ def _band_spectra(series: torch.Tensor, cfg: V757Config, hop: int) -> torch.Tens
                                                         spec.shape[-2]), cfg)
             return spec
     with trace(SPAN + ".frames"):
-        if cfg.detrend == DetrendMode.EHLERS:
-            windows = frame_highpassed(series, n, hop, cfg.trend_period)
+        taper = None if cfg.taper == WindowType.NONE else _taper(n, int(cfg.taper), series.device)
+        if cfg.detrend == DetrendMode.EHLERS:   # kernel F1 on the card
+            windows = ehlers_frames(series, n, hop, cfg.trend_period, taper)
         else:   # as the JAX package's framed branch: LINEAR frames the raw series too
             windows = frame_series(series, n, hop).contiguous()
-        if cfg.taper != WindowType.NONE:
-            windows.mul_(_taper(n, int(cfg.taper), windows.device))
+            if taper is not None:
+                windows.mul_(taper)
     with trace(SPAN + ".band_dft"):
         return band_dft(windows, _n_bins(cfg))
 
