@@ -45,11 +45,14 @@ It builds the port's nine CUDA sources from `wavespec_tpu_torch/csrc/`
      at windows 256, 1024 and 16384; timed at (c) with its plain version
      and its bound;
    - F1 frame matrix (`check_ehlers_frames`), bitwise against its plain
-     version (the eager `frame_highpassed` and taper) at shape (c), at
-     (i16k) (window 16384), at hop 3 with and without the taper and at a
-     window of 1001 samples; the kernel alone timed at (c) and (i16k) with
-     its bound, beside the plain chain and the whole stage (the
-     series-level high-pass and F1);
+     twin (the eager `ops.framing.frames_of_highpass`, taper included) at
+     shape (c), at (i16k) (window 16384), at a window of 1001 samples, and
+     at its two other callers' shapes: the EHLERS ridge (d) (one series,
+     4096 windows at hop 16) and a block of the online fleet (128 symbols x
+     128 frames, the core entry on the block-resumable high-pass); the
+     block and window 1001 also without a taper; the kernel alone timed at
+     (c) and (i16k) with its bound, beside the plain chain and the whole
+     stage (the series-level high-pass and F1);
    - B4 also on tie-heavy and jittered candidate streams at (J, C, S) =
      (7, 16, 1), (24, 64, 12), (41, 16, 32), (149, 64, 32), and B5 at 1
      and 32 slots, with one signal at a time, without the Kalman filter,
@@ -639,17 +642,22 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
         """(the kernels a path runs, the kernels it must not run): the
         series-level spectrum (the ridge's, MUSIC's fast-path seeds) from
         H1 where `use_hopped_dft` and the hop allow it, else from B3 over
-        the frames (ridge, MUSIC's in-window branch, AUTO)."""
+        the frames (ridge, MUSIC's in-window branch, AUTO); the frames of
+        an EHLERS path from F1 (once a call, checked below)."""
         plain = cfg.detrend == DetrendMode.NONE and cfg.taper == WindowType.NONE
         hopped = cfg.use_hopped_dft and kh.hopped_eligible(cfg.window, hop) and plain
         subspace = ("jacobi_eigh", "music_select")
         if cfg.method == Method.FFT_RIDGE:
-            return (("hopped_dft",), ("band_dft",)) if hopped else (("band_dft",), ("hopped_dft",))
-        if cfg.method == Method.ESPRIT:
-            return ("jacobi_eigh",), ("hopped_dft", "band_dft")
-        if cfg.method == Method.MUSIC and cfg.music_highpass and hopped:
-            return (*subspace, "hopped_dft"), ("band_dft",)
-        return (*subspace, "band_dft"), ("hopped_dft",)
+            runs = (("hopped_dft",), ("band_dft",)) if hopped else (("band_dft",), ("hopped_dft",))
+        elif cfg.method == Method.ESPRIT:
+            runs = ("jacobi_eigh",), ("hopped_dft", "band_dft")
+        elif cfg.method == Method.MUSIC and cfg.music_highpass and hopped:
+            runs = (*subspace, "hopped_dft"), ("band_dft",)
+        else:
+            runs = (*subspace, "band_dft"), ("hopped_dft",)
+        if cfg.detrend == DetrendMode.EHLERS:
+            return (*runs[0], "ehlers_frames"), runs[1]
+        return runs[0], (*runs[1], "ehlers_frames")
 
     launches, series, route = {}, {}, {}
     for name, (cfg, hop, nwin, rtol, i) in paths.items():
@@ -663,9 +671,10 @@ def extraction_methods(dev, tag, counters, reset_counts) -> dict:
         launches[name] = {k: fn.launches for k, fn in counters.items() if fn.launches}
         want, not_want = expect(cfg, hop)
         if (any(launches[name].get(k, 0) == 0 for k in want)
-                or any(launches[name].get(k, 0) for k in not_want)):
+                or any(launches[name].get(k, 0) for k in not_want)
+                or launches[name].get("ehlers_frames", 1) != 1):
             raise AssertionError(f"{name}: launched {launches[name]}; its route runs {want} "
-                                 f"and not {not_want}")
+                                 f"(F1 once) and not {not_want}")
         if tuple(attrs.shape) != (nwin, cfg.top_k, 15) or not torch.isfinite(attrs).all():
             raise AssertionError(f"{name}: attrs {tuple(attrs.shape)} not finite/"
                                  f"[{nwin}, {cfg.top_k}, 15]")
@@ -1341,17 +1350,27 @@ def check_cand_gd(xc, vcfg, dev, tag) -> dict:
 
 
 def check_ehlers_frames(xc, vcfg, dev, tag) -> dict:
-    """F1, the framed route's frame matrix (`kernels/ehlers_frames.py`),
-    bitwise against its plain version on the card: at shape (c) (`xc`,
-    `vcfg`), at (i16k) (`bench_series` at window 16384), at hop 3 over 16
-    symbols with and without the taper, and at window 1001 (the kernel's
-    one-sample path). Times the kernel alone (the high-pass computed
-    before) at (c) and (i16k) with CUDA events, median of 5 runs of 10
-    calls, beside its bound (the matrix's write) and the plain chain;
-    returns the kernel's record fields at (c)."""
-    from wavespec_tpu_torch.extract import _series_highpass
+    """F1, the frame matrix of every framed EHLERS route
+    (`kernels/ehlers_frames.py`), bitwise against its plain twin
+    `frames_of_highpass` on the card: at shape (c) (`xc`, `vcfg`), at
+    (i16k) (`bench_series` at window 16384), at window 1001 (the kernel's
+    one-sample path), and at its two other callers' shapes:
+    `_Extractor.frames` at the EHLERS ridge (d) of `extraction_methods`
+    (one series, 4096 windows at hop 16) and `_resumable_block_spec` at
+    the online fleet's (h) (128 symbols, one block of 128 frames at hop
+    1), the core entry `ehlers_frames_of` on the block-resumable
+    high-pass. The online block and window 1001 run also without a taper
+    (EHLERS with taper NONE), so each of the kernel's four builds (four
+    samples a thread or one, tapered or not) is held. Times the kernel
+    alone (the high-pass computed before) at (c) and (i16k) with CUDA
+    events, median of 5 runs of 10 calls, beside its bound (the matrix's
+    write) and the plain chain (the series-level high-pass, then
+    `frames_of_highpass`); returns the kernel's record fields at (c)."""
     from wavespec_tpu_torch.kernels import ehlers_frames as kf
+    from wavespec_tpu_torch.ops.detrend import ehlers_highpass_blocked
+    from wavespec_tpu_torch.ops.framing import frames_of_highpass, series_highpass
     from wavespec_tpu_torch.ops.windows import window_coefficients
+    from wavespec_tpu_torch.pipeline.v757 import FRAME_BLOCK
 
     def series(symbols, frames, window, hop):
         rng = np.random.default_rng(SEED + hop)
@@ -1361,16 +1380,23 @@ def check_ehlers_frames(xc, vcfg, dev, tag) -> dict:
 
     trend, taper = vcfg.trend_period, int(vcfg.taper)
     x16k = torch.from_numpy(bench_series(V757_SYMBOLS, V757_FRAMES, 16384)).to(dev)
+    xh, x1001 = series(V757_SYMBOLS, FRAME_BLOCK, WINDOW, 1), series(8, 37, 1001, 2)
     cases = {"(c)": (xc, WINDOW, 1, taper), "(i16k)": (x16k, 16384, 1, taper),
-             "hop 3": (series(16, 301, WINDOW, 3), WINDOW, 3, taper),
-             "hop 3, no taper": (series(16, 301, WINDOW, 3), WINDOW, 3, 0),
-             "window 1001": (series(8, 37, 1001, 2), 1001, 2, taper)}
+             "ridge EHLERS (d)": (series(1, 4096, WINDOW, 16)[0], WINDOW, 16, taper),
+             "resumable block (h)": (xh, WINDOW, 1, taper),
+             "resumable block (h), no taper": (xh, WINDOW, 1, 0),
+             "window 1001": (x1001, 1001, 2, taper), "window 1001, no taper": (x1001, 1001, 2, 0)}
     failed, rec = [], {}
     for label, (x, window, hop, tp) in cases.items():
         table = window_coefficients(window, tp, device=dev) if tp else None
         before = kf.ehlers_frames.launches
-        got = kf.ehlers_frames(x, window, hop, trend, table)
-        want = kf.ehlers_frames_plain(x, window, hop, trend, table)
+        if label.startswith("resumable"):
+            hp = ehlers_highpass_blocked(x, trend, block=FRAME_BLOCK)
+            got = kf.ehlers_frames_of(x, hp, window, hop, trend, table)
+        else:
+            hp = series_highpass(trend, dev)(x)[..., 0, :]
+            got = kf.ehlers_frames(x, window, hop, trend, table)
+        want = frames_of_highpass(x, hp, window, hop, trend, table)
         torch.cuda.synchronize()
         n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
         if n or kf.ehlers_frames.launches != before + 1:
@@ -1379,10 +1405,9 @@ def check_ehlers_frames(xc, vcfg, dev, tag) -> dict:
         del got, want
         if label not in ("(c)", "(i16k)"):
             continue
-        hp = _series_highpass(trend, dev)(x)[..., 0, :]
         ms = cuda_ms(lambda: kf._f1(x, hp, window, hop, trend, table), per_run=10)
-        plain_ms = cuda_ms(lambda: kf.ehlers_frames_plain(x, window, hop, trend, table),
-                           per_run=3)
+        plain_ms = cuda_ms(lambda: frames_of_highpass(
+            x, series_highpass(trend, dev)(x)[..., 0, :], window, hop, trend, table), per_run=3)
         stage_ms = cuda_ms(lambda: kf.ehlers_frames(x, window, hop, trend, table), per_run=10)
         frames = kf.n_frames(x.shape[-1], window, hop)
         n_bytes = x.shape[0] * frames * window * 4
@@ -1393,9 +1418,9 @@ def check_ehlers_frames(xc, vcfg, dev, tag) -> dict:
             f"{stage_ms:.4f} ms (CUDA events, median of 5) {tag}")
         if label == "(c)":
             rec = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, bound=b)
-        del hp
-    del x16k, cases
-    log(f"F1 ehlers_frames: {len(failed)} of 5 shapes not bitwise equal to the plain version")
+    log(f"F1 ehlers_frames: {len(failed)} of {len(cases)} shapes not bitwise equal to the plain "
+        f"version")
+    del x16k, xh, x1001, cases, hp
     if failed:
         raise AssertionError("F1 ehlers_frames differs from its plain version: "
                              + "; ".join(failed))
@@ -1803,7 +1828,8 @@ class KernelCalls:
     `ops.spectrum.framed_spectrum`, B3's own split of long windows and, for
     H1, `extract`'s ridge and MUSIC routes), those `pipeline.v757`
     imported (`band_dft`, `track_frames`, which takes B4 on the card in the
-    config's matcher, and `v757_tail`) and the one `filters.kalman_wave`
+    config's matcher, `v757_tail` and F1's core entry `ehlers_frames_of`,
+    which its resumable framed blocks take) and the one `filters.kalman_wave`
     imported (`kalman_weights_filter`, which takes K1 on the card). Nothing is
     copied: no path writes a tensor after handing it to a kernel or
     receiving it from one. Launch counts are kept on the wrapped
@@ -1822,7 +1848,7 @@ class KernelCalls:
         kw = importlib.import_module("wavespec_tpu_torch.filters.kalman_wave")
         self.sites = ((kj, "jacobi_eigh_unsorted"), (ks, "select_candidates"),
                       (kb, "band_dft"), (pv, "band_dft"), (pv, "track_frames"),
-                      (pv, "v757_tail"), (kh, "rfft_band_hopped"),
+                      (pv, "v757_tail"), (pv, "ehlers_frames_of"), (kh, "rfft_band_hopped"),
                       (kw, "kalman_weights_filter"))
         self.on, self.calls = False, []
 
@@ -1861,11 +1887,13 @@ class _Recording:
 
 
 def check_tick_calls(calls: KernelCalls, label: str) -> None:
-    """Every recorded B3, B4 and B5 call of a driver's checked ticks
-    against its plain version on the same inputs: B3 per window within
-    1e-4 of its largest bin, B4 bitwise (the 11 outputs and the final
-    state), B5 as `tail_diff` (outputs and final state)."""
+    """Every recorded F1, B3, B4 and B5 call of a driver's checked ticks
+    against its plain version on the same inputs: F1 (the core entry on a
+    block's high-pass) bitwise, B3 per window within 1e-4 of its largest
+    bin, B4 bitwise (the 11 outputs and the final state), B5 as
+    `tail_diff` (outputs and final state)."""
     from wavespec_tpu_torch.analyze.trackers import TrackerState, track_frames_plain
+    from wavespec_tpu_torch.ops.framing import frames_of_highpass
     from wavespec_tpu_torch.ops.spectrum import band_dft_plain
     from wavespec_tpu_torch.pipeline.tail import v757_tail_plain
 
@@ -1880,6 +1908,10 @@ def check_tick_calls(calls: KernelCalls, label: str) -> None:
                 raise AssertionError(f"(h) {label}: B3 on a tick's windows "
                                      f"{tuple(args[0].shape)} off its plain version ({err:.3e})")
             b3_err = max(b3_err, err)
+        elif name == "ehlers_frames_of":
+            if not torch.equal(out, frames_of_highpass(*args, **kw)):
+                raise AssertionError(f"(h) {label}: F1 on a block {tuple(args[0].shape)} differs "
+                                     f"from its plain version")
         elif name == "track_frames":
             (got, state), (ref, ref_state) = out, track_frames_plain(*args, **kw)
             frames.add(args[0].shape[-2])
@@ -1898,6 +1930,7 @@ def check_tick_calls(calls: KernelCalls, label: str) -> None:
         raise AssertionError(f"(h) {label}: no tick's kernel calls were recorded")
     b3 = (f"B3 per window within {b3_err:.3e} of its largest bin (tol 1e-4); "
           if "band_dft" in count else "")
+    b3 = ("F1 bitwise; " if "ehlers_frames_of" in count else "") + b3
     log(f"(h) {label}: each kernel call of the checked ticks against its plain version on "
         f"the same inputs: {count} calls ({resumed} of B4's resumed from the previous step, "
         f"{sorted(frames)} frames a call); {b3}B4 bitwise on the 11 outputs and the final "
@@ -2064,6 +2097,9 @@ def online_fleet(dev, tag, counters, reset_counts) -> tuple[dict, dict]:
                 expect)
         ticks[label] = (statistics.median(dev_ms), statistics.median(host_ms),
                         statistics.median(ops))
+        # one block's frames a step: on the framed branch F1 once a step, as B3
+        if launches[label].get("ehlers_frames", 0) != launches[label].get("band_dft", 0):
+            raise AssertionError(f"(h) {label}: F1 and B3 launched unequally {launches[label]}")
         got = drv.buffers()
         log(f"(h) {label}: {drv.frames_done} frames from {len(chunks)} updates "
             f"({len(chunks) - timed_from} one-bar ticks, {len(dev_ms)} timed); one-bar tick "
@@ -2086,7 +2122,8 @@ def online_fleet(dev, tag, counters, reset_counts) -> tuple[dict, dict]:
     res = V757Config(resumable=True)
     branch_cfg = {"sliding": V757Config(resumable=True, sliding_spectral=True),
                   "framed": V757Config(resumable=True, sliding_spectral=False)}
-    expect = {"sliding": ("tracker", "v757_tail"), "framed": ("band_dft", "tracker", "v757_tail")}
+    expect = {"sliding": ("tracker", "v757_tail"),
+              "framed": ("ehlers_frames", "band_dft", "tracker", "v757_tail")}
     n_bins = pv._n_bins(res)
     xc_host = bench_series(V757_SYMBOLS, V757_FRAMES)
     xc = torch.from_numpy(xc_host).to(dev)
@@ -2536,10 +2573,10 @@ PRESET_TEXT_W1024 = ("time: dc(mode=0); extract: window=1024, top_k=6, method=mu
 
 
 def check_preset_calls(calls: KernelCalls, label: str) -> dict:
-    """Every recorded B1-B5, H1 and K1 call of one run (a preset's, or a
-    host-surface path's; `label` prefixes the log line) against its plain
-    version on the same inputs: B1, B2, B4 (either matcher), B5 and K1
-    bitwise (every output and the final states), B3 per window within
+    """Every recorded B1-B5, F1 (core entry), H1 and K1 call of one run (a
+    preset's, or a host-surface path's; `label` prefixes the log line)
+    against its plain version on the same inputs: B1, B2, B4 (either
+    matcher), B5, F1 and K1 bitwise (every output and the final states), B3 per window within
     1e-4 of its largest bin (a call on windows past `MAX_N`, which
     recombines the kernel's sub-window calls, against a float64 DFT of
     the same windows, every bin it returns; its sub-window calls against
@@ -2553,6 +2590,7 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
     from wavespec_tpu_torch.kernels.band_dft import MAX_N
     from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped_plain
     from wavespec_tpu_torch.ops import spectrum as ps
+    from wavespec_tpu_torch.ops.framing import frames_of_highpass
     from wavespec_tpu_torch.pipeline.tail import v757_tail_plain
 
     count, b3_err, h1_err, long_b3 = {}, 0.0, 0.0, {}
@@ -2595,6 +2633,8 @@ def check_preset_calls(calls: KernelCalls, label: str) -> dict:
         elif name == "kalman_weights_filter":
             got = dict(zip(("blend", "weights"), out))
             ref = dict(zip(("blend", "weights"), kalman_weights_filter_plain(*args, **kw)))
+        elif name == "ehlers_frames_of":
+            got, ref = {"frames": out}, {"frames": frames_of_highpass(*args, **kw)}
         elif name == "track_frames":
             (got, state), (ref, ref_state) = out, track_frames_plain(*args, **kw)
             got = {**got, **{f"state.{f}": getattr(state, f) for f in TrackerState._fields}}

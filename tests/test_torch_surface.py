@@ -94,3 +94,22 @@ def test_public_names_have_a_counterpart(module):
     assert missing == [], missing
     stale = sorted(excused & have)
     assert stale == [], f"exceptions for names the port now has: {stale}"
+
+
+@pytest.mark.parametrize("layer", ["kernels", "ops"])
+def test_lower_layers_do_not_import_the_entry_module(layer):
+    """No module of the port's kernel or ops layer imports `extract`, the
+    top entry module, at any level of its code: the primitives it uses
+    live below it (`ops.framing`)."""
+    found = []
+    for path in sorted((PORT_PKG / layer).rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                modules = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                modules = [node.module] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            if "wavespec_tpu_torch.extract" in modules:
+                found.append(f"{path.relative_to(ROOT)}:{node.lineno}")
+    assert found == [], found

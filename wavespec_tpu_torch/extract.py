@@ -31,8 +31,9 @@ per method holding its tables as buffers (`RidgeExtractor`,
   high-pass inside the window, seeds from the framed spectrum);
 - AUTO: MUSIC and ridge on the same windows, the MUSIC record where its
   eigen ratio reaches `auto_eigen_threshold`, the ridge record otherwise;
-- per-window preconditioning: EHLERS by `frame_highpassed` (then the
-  taper), LINEAR and the taper by `_precondition`.
+- per-window preconditioning: EHLERS by kernel F1 over the series
+  (`kernels.ehlers_frames`, the taper included), LINEAR and the taper by
+  `_precondition`.
 
 `extract_cycles` is the single-window call on a series' trailing window.
 """
@@ -44,12 +45,24 @@ import enum
 import math
 from functools import lru_cache
 
-import numpy as np
 import torch
 from torch import nn
 
-from wavespec_tpu_torch.ops.arith import tree_sum
-from wavespec_tpu_torch.ops.windows import WindowType
+from wavespec_tpu_torch.analyze.esprit import esprit_extract
+from wavespec_tpu_torch.analyze.music import SPAN as MUSIC_SPAN
+from wavespec_tpu_torch.analyze.music import (GridTables, _band_plan, band_hp_periods,
+                                              band_precondition_windows, band_rows_hp_periods,
+                                              music_extract, music_hp_period, topk_stable)
+# the hopped DFT's wrapper is looked up at call time, where a recorder can wrap it
+from wavespec_tpu_torch.kernels import hopped_dft
+from wavespec_tpu_torch.kernels.ehlers_frames import ehlers_frames
+from wavespec_tpu_torch.kernels.jacobi import launch_plan
+from wavespec_tpu_torch.kernels.music_select import check_candidates
+from wavespec_tpu_torch.ops.arith import sdiv, tree_sum
+from wavespec_tpu_torch.ops.detrend import HighpassMXU, linear_detrend
+from wavespec_tpu_torch.ops.framing import frame_highpassed, frame_series  # noqa: F401
+from wavespec_tpu_torch.ops.spectrum import band_indices, framed_spectrum, rfft_bins
+from wavespec_tpu_torch.ops.windows import WindowType, coherent_gain, window_coefficients
 from wavespec_tpu_torch.utils.telemetry import trace, traced
 
 STRIDE = 15
@@ -241,73 +254,12 @@ def _attrs_from_peaks(freq, amp, phase_end, power, valid, total_inband,
     return torch.where(valid[..., None], attrs, 0.0)
 
 
-def frame_series(series: torch.Tensor, window: int, hop: int) -> torch.Tensor:
-    """Strided window view ``[..., nwin, window]`` of ``[..., n]``, window w
-    covering ``series[..., w*hop : w*hop + window]`` (no copy)."""
-    return series.unfold(-1, window, hop)
-
-
-@lru_cache(maxsize=32)
-def _series_highpass(trend_period: int, device: torch.device,
-                     dtype: torch.dtype = torch.float32):
-    from wavespec_tpu_torch.ops.detrend import HighpassMXU
-
-    return HighpassMXU((trend_period,), dtype=dtype).to(device)
-
-
-def frame_highpassed(series: torch.Tensor, window: int, hop: int,
-                     trend_period: int) -> torch.Tensor:
-    """Per-window cold-start Ehlers high-pass of every rolling window
-    ``[..., nwin, window]`` (float32), from one series-level filter plus a
-    rank-1 correction (counterpart of `wavespec_tpu/extract.py::
-    frame_highpassed`).
-
-    The per-window filter differs from the series-level one only in its
-    first step, and a one-pole filter carries that difference as a
-    geometric decay: ``detr_w[j] = hp_s[s0 + j] - alpha^j * delta_w`` with
-    ``delta_w = 2c p[s0] - trend_s[s0]``. The series-level filter is
-    `HighpassMXU` at `trend_period` (about 1e-6 relative of the JAX
-    package's scan); ``alpha^j`` is built in float64 and cast. Computed in
-    float64 for a float64 series (CPU only), in float32 otherwise.
-    """
-    from wavespec_tpu_torch.ops.detrend import _ehlers_consts
-
-    dtype = torch.float64 if series.dtype == torch.float64 else torch.float32
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    alpha, _ = _ehlers_consts(trend_period)
-    c = (1.0 - alpha) / 2.0
-    series = series.to(dtype)
-    hp_s = _series_highpass(trend_period, series.device, dtype)(series)[..., 0, :]
-    trend_s = series - hp_s
-    framed = frame_series(hp_s, window, hop)
-    nwin = framed.shape[-2]
-    p0 = series[..., ::hop][..., :nwin]
-    t0 = trend_s[..., ::hop][..., :nwin]
-    delta = float(np_dtype(2.0 * c)) * p0 - t0
-    out = delta[..., None] * _alpha_powers(window, trend_period, dtype, series.device)
-    return torch.sub(framed, out, out=out)   # one window-sized buffer
-
-
-@lru_cache(maxsize=32)
-def _alpha_powers(window: int, trend_period: int, dtype: torch.dtype,
-                  device: torch.device) -> torch.Tensor:
-    """``alpha^j``, j < window, built in float64 and cast, on `device` once:
-    a copy from pageable host memory makes the host wait on the card."""
-    from wavespec_tpu_torch.ops.detrend import _ehlers_consts
-
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    aj = _ehlers_consts(trend_period)[0] ** np.arange(window)
-    return torch.from_numpy(aj.astype(np_dtype)).to(device)
-
-
 def _precondition(windows: torch.Tensor, cfg: ExtractConfig, detrend_hp=None,
                   taper: torch.Tensor | None = None) -> torch.Tensor:
     """Detrend and taper a batch of windows ``[..., n]``: LINEAR by the
     least-squares line, EHLERS by the one-pole high-pass at
     `cfg.trend_period` (`detrend_hp`, an `ops.detrend.HighpassMXU` at
     that period), then the taper coefficients."""
-    from wavespec_tpu_torch.ops.detrend import linear_detrend
-
     if cfg.detrend == DetrendMode.LINEAR:
         windows = linear_detrend(windows)
     elif cfg.detrend == DetrendMode.EHLERS:
@@ -324,11 +276,6 @@ def _ridge_attrs_from_spec(spec: torch.Tensor, cfg: ExtractConfig) -> torch.Tens
     |X_k| and the taper's coherent gain, phase at the newest bar,
     coherence against the +/-2-bin neighbourhood (out-of-band neighbours
     included), and the peak-to-runner-up ratio as eigen_ratio."""
-    from wavespec_tpu_torch.analyze.music import topk_stable
-    from wavespec_tpu_torch.ops.arith import sdiv
-    from wavespec_tpu_torch.ops.spectrum import band_indices
-    from wavespec_tpu_torch.ops.windows import coherent_gain
-
     n = cfg.window
     k_min, k_max = band_indices(n, cfg.min_period, cfg.max_period)
     re, im = spec.real, spec.imag
@@ -369,8 +316,6 @@ def _fft_ridge(windows: torch.Tensor, cfg: ExtractConfig) -> torch.Tensor:
     the counterpart of `rfft_band_fused_any`), so that the band's
     +/-2-bin neighbourhoods see their true out-of-band neighbours; at most
     the n / 2 bins below Nyquist, as the JAX package's `rfft_mxu` gives."""
-    from wavespec_tpu_torch.ops.spectrum import band_indices, framed_spectrum
-
     _, k_max = band_indices(cfg.window, cfg.min_period, cfg.max_period)
     n_bins = min(k_max + 3, cfg.window // 2)
     return _ridge_attrs_from_spec(framed_spectrum(windows, n_bins), cfg)
@@ -385,9 +330,6 @@ class _Extractor(nn.Module):
 
     def __init__(self, cfg: ExtractConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        from wavespec_tpu_torch.ops.detrend import HighpassMXU
-        from wavespec_tpu_torch.ops.windows import window_coefficients
-
         self.cfg = cfg
         self.dtype = dtype
         self.detrend_hp = (HighpassMXU((cfg.trend_period,), dtype=dtype)
@@ -410,13 +352,11 @@ class _Extractor(nn.Module):
 
     def frames(self, series: torch.Tensor, hop: int) -> torch.Tensor:
         """The rolling batch's preconditioned windows ``[..., nwin, n]``:
-        EHLERS by the rank-1 identity of `frame_highpassed`, then the
-        taper; otherwise framing, then `_precondition`."""
+        EHLERS by `ehlers_frames` (kernel F1 on the card, the taper
+        included); otherwise framing, then `_precondition`."""
         cfg = self.cfg
         if cfg.detrend == DetrendMode.EHLERS:
-            windows = frame_highpassed(series, cfg.window, hop, cfg.trend_period).to(self.dtype)
-            # a fresh buffer: taper it in place
-            return windows if self.taper is None else windows.mul_(self.taper)
+            return ehlers_frames(series, cfg.window, hop, cfg.trend_period, self.taper)
         return self.precondition(frame_series(series, cfg.window, hop))
 
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
@@ -435,9 +375,7 @@ def _hopped_route(cfg: ExtractConfig, hop: int) -> bool:
     """The series-level spectrum comes from the hopped DFT: the config
     asks for it and the (window, hop) is eligible (`extract.py:563-580`
     and `:642-654` of the JAX package)."""
-    from wavespec_tpu_torch.kernels.hopped_dft import hopped_eligible
-
-    return cfg.use_hopped_dft and hopped_eligible(cfg.window, hop)
+    return cfg.use_hopped_dft and hopped_dft.hopped_eligible(cfg.window, hop)
 
 
 class RidgeExtractor(_Extractor):
@@ -449,16 +387,14 @@ class RidgeExtractor(_Extractor):
         return _fft_ridge(windows, self.cfg)
 
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
-        from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
-        from wavespec_tpu_torch.ops.spectrum import band_indices
-
         cfg = self.cfg
         if not (_hopped_route(cfg, hop) and cfg.detrend == DetrendMode.NONE
                 and cfg.taper == WindowType.NONE):
             return super().forward(series, hop)
         series = self._series(series, hop).contiguous()
         _, k_max = band_indices(cfg.window, cfg.min_period, cfg.max_period)
-        return _ridge_attrs_from_spec(rfft_band_hopped(series, cfg.window, hop, k_max + 3), cfg)
+        spec = hopped_dft.rfft_band_hopped(series, cfg.window, hop, k_max + 3)
+        return _ridge_attrs_from_spec(spec, cfg)
 
 
 class EspritExtractor(_Extractor):
@@ -468,19 +404,12 @@ class EspritExtractor(_Extractor):
 
     def __init__(self, cfg: ExtractConfig, dtype: torch.dtype = torch.float32):
         super().__init__(cfg, dtype)
-        from wavespec_tpu_torch.analyze.music import music_hp_period
-        from wavespec_tpu_torch.ops.detrend import HighpassMXU
-
         self.main_hp = HighpassMXU((music_hp_period(cfg),), dtype=dtype)
 
     def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
-        from wavespec_tpu_torch.analyze.esprit import esprit_extract
-
         return esprit_extract(windows, self.cfg, highpass=self.main_hp)
 
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
-        from wavespec_tpu_torch.analyze.esprit import esprit_extract
-
         cfg = self.cfg
         if not _series_fast_path(cfg):
             return super().forward(series, hop)
@@ -508,33 +437,22 @@ class MusicExtractor(_Extractor):
 
     def __init__(self, cfg: ExtractConfig, dtype: torch.dtype = torch.float32):
         super().__init__(cfg, dtype)
-        from wavespec_tpu_torch.analyze.music import (
-            GridTables, band_hp_periods, band_rows_hp_periods, music_hp_period)
-        from wavespec_tpu_torch.ops.detrend import HighpassMXU
-
         self.main_hp = HighpassMXU((music_hp_period(cfg),), dtype=dtype)
         self.band_hp = HighpassMXU(band_hp_periods(cfg), dtype=dtype)
         self.rows_hp = HighpassMXU(band_rows_hp_periods(cfg), dtype=dtype)
         self.tables = GridTables(cfg, dtype)
 
     def extract_windows(self, windows: torch.Tensor) -> torch.Tensor:
-        from wavespec_tpu_torch.analyze.music import music_extract
-
         return music_extract(windows, self.cfg, None, None, self.tables, pre_highpassed=False,
                              main_hp=self.main_hp, rows_hp=self.rows_hp)
 
     def forward(self, series: torch.Tensor, hop: int) -> torch.Tensor:
-        from wavespec_tpu_torch.analyze.music import (
-            SPAN, band_precondition_windows, music_extract)
-        from wavespec_tpu_torch.kernels.hopped_dft import rfft_band_hopped
-        from wavespec_tpu_torch.ops.spectrum import rfft_bins
-
         cfg = self.cfg
         if not _series_fast_path(cfg):
-            with trace(SPAN + ".frames"):
+            with trace(MUSIC_SPAN + ".frames"):
                 windows = self.frames(self._series(series, hop), hop)
             return self.extract_windows(windows)
-        with trace(SPAN + ".frames"):
+        with trace(MUSIC_SPAN + ".frames"):
             series = self._series(series, hop)
             # Anchor on the first sample before the series-level filter, so
             # the cold-start high-pass sees no level step.
@@ -543,8 +461,8 @@ class MusicExtractor(_Extractor):
             windows = frame_series(hp_series, cfg.window, hop).contiguous()
             band_w = band_precondition_windows(hp_series, cfg, hop, self.band_hp)
             if _hopped_route(cfg, hop):
-                seed_spec = rfft_band_hopped(hp_series.contiguous(), cfg.window, hop,
-                                             self.tables.k_max + 1)
+                seed_spec = hopped_dft.rfft_band_hopped(hp_series.contiguous(), cfg.window,
+                                                        hop, self.tables.k_max + 1)
             else:
                 seed_spec = rfft_bins(windows)[..., :self.tables.k_max + 1]
         return music_extract(windows, cfg, band_w, seed_spec, self.tables)
@@ -588,10 +506,6 @@ def check_card_limits(cfg: ExtractConfig) -> None:
     take its size: the Jacobi eigh past order `kernels.jacobi.MAX_M`
     (covariances of order ar_order), and the candidate selection past the
     JAX package's own 128 candidates (MUSIC and AUTO)."""
-    from wavespec_tpu_torch.analyze.music import _band_plan
-    from wavespec_tpu_torch.kernels.jacobi import launch_plan
-    from wavespec_tpu_torch.kernels.music_select import check_candidates
-
     if cfg.method != Method.FFT_RIDGE:
         launch_plan(cfg.ar_order)
     if cfg.method in (Method.MUSIC, Method.AUTO):

@@ -57,12 +57,9 @@ def _online_step(seg: torch.Tensor, hp_carry, lead: int, r: int, tracker, tail,
     the previous step's states (None on the first step). Returns (rows of
     the r frames, tracker state, tail state)."""
     w = cfg.window
-    if cfg.detrend == DetrendMode.EHLERS:
-        hp = ehlers_highpass_blocked(seg, cfg.trend_period, block=FRAME_BLOCK, carry=hp_carry)
-        trend = seg - hp
-    else:
-        hp = trend = seg
-    spec = _resumable_block_spec(seg, hp, trend, cfg)
+    hp = (ehlers_highpass_blocked(seg, cfg.trend_period, block=FRAME_BLOCK, carry=hp_carry)
+          if cfg.detrend == DetrendMode.EHLERS else seg)
+    spec = _resumable_block_spec(seg, hp, cfg)
     spectral = _cands_and_gd(spec[..., lead:lead + r, :], cfg)
     newest = seg[..., w - 1 + lead:w - 1 + lead + r].contiguous()
     # the two prices before the step's first frame: read by a fresh tail only
@@ -196,8 +193,8 @@ def _fast_step(new_bars: torch.Tensor, price_prev: torch.Tensor, fs: FastSpectra
     spec_re = (yr * tabs["a_vals"]).sum(-1)                             # [B, r, K]
     spec_im = (yi * tabs["a_vals"]).sum(-1)
     if ehlers:
-        _, tg_re, tg_im = _rank1_tables(n, n_bins, int(cfg.taper), cfg.trend_period,
-                                        new_bars.device)
+        tg_re, tg_im = _rank1_tables(n, n_bins, int(cfg.taper), cfg.trend_period,
+                                     new_bars.device)
         spec_re = spec_re - deltas[..., None] * tg_re
         spec_im = spec_im - deltas[..., None] * tg_im
     fs = FastSpectralState(yr[..., -1, :, :], yi[..., -1, :, :],

@@ -35,16 +35,16 @@ import torch
 
 from wavespec_tpu_torch.analyze.eta import EtaMode, leak_eta_bars
 from wavespec_tpu_torch.analyze.trackers import TrackerConfig, track_frames
-from wavespec_tpu_torch.extract import DetrendMode, frame_series
+from wavespec_tpu_torch.extract import DetrendMode
 from wavespec_tpu_torch.filters.kalman4d import Kalman4DConfig
 from wavespec_tpu_torch.kernels.band_dft import band_dft
 from wavespec_tpu_torch.kernels.cand_gd import _gd_lo, cand_gd
-from wavespec_tpu_torch.kernels.ehlers_frames import ehlers_frames
+from wavespec_tpu_torch.kernels.ehlers_frames import ehlers_frames, ehlers_frames_of
 from wavespec_tpu_torch.kernels.sliding_dft import (_fresh, sliding_band_spec, taper_harmonics,
                                                     tapered_dft_of)
 from wavespec_tpu_torch.kernels.v757_tail import v757_tail
-from wavespec_tpu_torch.ops.detrend import (_ehlers_consts, ehlers_highpass_blocked,
-                                            ehlers_highpass_detrend)
+from wavespec_tpu_torch.ops.detrend import ehlers_highpass_blocked, ehlers_highpass_detrend
+from wavespec_tpu_torch.ops.framing import alpha_powers, cold_start_delta, frame_series
 from wavespec_tpu_torch.ops.spectrum import band_indices
 from wavespec_tpu_torch.ops.windows import WindowType, window_coefficients
 from wavespec_tpu_torch.signals.followfirst import FollowFirstConfig
@@ -128,36 +128,36 @@ def _rows(x: torch.Tensor) -> int:
 @lru_cache(maxsize=32)
 def _rank1_tables(window: int, n_bins: int, taper: int, trend_period: int,
                   device: torch.device):
-    """The per-window cold start of the Ehlers filter as a rank-1 term:
-    (alpha^j [N], and the real and imaginary parts of the tapered DFT of
-    alpha^j at bins [0, n_bins)), float32 on `device`."""
-    alpha, _ = _ehlers_consts(trend_period)
-    aj = alpha ** np.arange(window, dtype=np.float64)
+    """The per-window cold start of the Ehlers filter as a rank-1 term on
+    the band spectrum: the real and imaginary parts of the tapered DFT of
+    alpha^j at bins [0, n_bins), float32 on `device`."""
+    aj = alpha_powers(window, trend_period, torch.float64, torch.device("cpu")).numpy()
     tg = tapered_dft_of(aj, n_bins, taper)
     return tuple(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
-                 for x in (aj, tg.real, tg.imag))
+                 for x in (tg.real, tg.imag))
 
 
 @lru_cache(maxsize=32)
-def _taper(window: int, taper: int, device: torch.device) -> torch.Tensor:
-    """The taper's coefficients on `device`, copied there once: a copy from
-    pageable host memory makes the host wait on the card."""
-    return window_coefficients(window, taper, device=device)
+def _taper(window: int, taper: int, device: torch.device) -> torch.Tensor | None:
+    """The taper's coefficients on `device` (None for no taper), copied
+    there once: a copy from pageable host memory makes the host wait on
+    the card."""
+    return None if taper == WindowType.NONE else window_coefficients(window, taper, device=device)
 
 
-def _ehlers_delta(series: torch.Tensor, trend: torch.Tensor, cfg: V757Config, t: int):
-    """``delta_w = c2 p[w] - trend[w]`` of the first `t` windows: the
-    per-window cold-start filter differs from the series-level one by
-    ``alpha^j delta_w``."""
-    c2 = float(np.float32(_ehlers_consts(cfg.trend_period)[1]))
-    return c2 * series[..., :t] - trend[..., :t]
-
-
-def _minus_rank1(spec: torch.Tensor, delta: torch.Tensor, cfg: V757Config) -> torch.Tensor:
-    """``spec - delta DFT(taper alpha^j)`` on real and imaginary parts."""
-    _, tg_re, tg_im = _rank1_tables(cfg.window, spec.shape[-1], int(cfg.taper),
-                                    cfg.trend_period, spec.device)
-    d = delta[..., None]
+def _sliding_spec(series: torch.Tensor, hp: torch.Tensor, cfg: V757Config,
+                  **chunking) -> torch.Tensor:
+    """The sliding branches' band spectra of the hop-1 frames of ``hp``, a
+    high-pass of ``series`` (bins from `_gd_lo`; `chunking` goes to
+    `sliding_band_spec`), less ``delta DFT(taper alpha^j)`` for EHLERS
+    detrend on real and imaginary parts (`ops.framing.cold_start_delta`)."""
+    spec = sliding_band_spec(hp, cfg.window, _n_bins(cfg), cfg.taper, k_lo=_gd_lo(cfg),
+                             **chunking)
+    if cfg.detrend != DetrendMode.EHLERS:
+        return spec
+    tg_re, tg_im = _rank1_tables(cfg.window, spec.shape[-1], int(cfg.taper),
+                                 cfg.trend_period, spec.device)
+    d = cold_start_delta(series, hp, cfg.trend_period, 1, spec.shape[-2])[..., None]
     return torch.complex(spec.real - d * tg_re, spec.imag - d * tg_im)
 
 
@@ -165,35 +165,40 @@ def _band_spectra(series: torch.Tensor, cfg: V757Config, hop: int) -> torch.Tens
     """Band spectra ``[..., T, n_bins]`` of every frame of ``series [..., L]``
     by the route of `cfg` (module docstring). On the sliding route the
     bins below `_gd_lo` are not the spectrum and are never read."""
-    n = cfg.window
     series = series.to(torch.float32)
     if cfg.resumable:
         if hop != 1:
             raise ValueError("resumable v757 requires hop=1")
         with trace(SPAN + ".frames"):
-            hp, trend = _resumable_hp(series, cfg)
+            hp = _resumable_hp(series, cfg)
         with trace(SPAN + ".band_dft"):   # each block's framing and taper included
-            return _band_spec_resumable(series, hp, trend, cfg)
+            return _band_spec_resumable(series, hp, cfg)
     if _use_sliding(cfg, hop, series.device, _rows(series)):
         with trace(SPAN + ".frames"):
             hp = (ehlers_highpass_detrend(series, cfg.trend_period)
                   if cfg.detrend == DetrendMode.EHLERS else series)
         with trace(SPAN + ".band_dft"):
-            spec = sliding_band_spec(hp, n, _n_bins(cfg), cfg.taper, k_lo=_gd_lo(cfg))
-            if cfg.detrend == DetrendMode.EHLERS:
-                spec = _minus_rank1(spec, _ehlers_delta(series, series - hp, cfg,
-                                                        spec.shape[-2]), cfg)
-            return spec
+            return _sliding_spec(series, hp, cfg)
     with trace(SPAN + ".frames"):
-        taper = None if cfg.taper == WindowType.NONE else _taper(n, int(cfg.taper), series.device)
-        if cfg.detrend == DetrendMode.EHLERS:   # kernel F1 on the card
-            windows = ehlers_frames(series, n, hop, cfg.trend_period, taper)
-        else:   # as the JAX package's framed branch: LINEAR frames the raw series too
-            windows = frame_series(series, n, hop).contiguous()
-            if taper is not None:
-                windows.mul_(taper)
+        windows = _tapered_frames(series, cfg, hop)
     with trace(SPAN + ".band_dft"):
         return band_dft(windows, _n_bins(cfg))
+
+
+def _tapered_frames(series: torch.Tensor, cfg: V757Config, hop: int,
+                    hp: torch.Tensor | None = None) -> torch.Tensor:
+    """The framed branches' tapered windows ``[..., T, window]`` in a new
+    contiguous buffer (B3 takes no strided view): by kernel F1 for EHLERS
+    detrend, of `hp` or else of the series-level high-pass; otherwise the
+    frames of `hp` or else of the raw series (LINEAR too, as the JAX
+    package's framed branch)."""
+    taper = _taper(cfg.window, int(cfg.taper), series.device)
+    if cfg.detrend == DetrendMode.EHLERS:
+        if hp is None:
+            return ehlers_frames(series, cfg.window, hop, cfg.trend_period, taper)
+        return ehlers_frames_of(series, hp, cfg.window, hop, cfg.trend_period, taper)
+    windows = _fresh(frame_series(series if hp is None else hp, cfg.window, hop))
+    return windows if taper is None else windows.mul_(taper)
 
 
 def _spectral_frames(series: torch.Tensor, cfg: V757Config, hop: int):
@@ -202,53 +207,37 @@ def _spectral_frames(series: torch.Tensor, cfg: V757Config, hop: int):
     return _cands_and_gd(_band_spectra(series, cfg, hop), cfg)
 
 
-def _resumable_block_spec(seg: torch.Tensor, hp_seg: torch.Tensor, trend_seg: torch.Tensor,
+def _resumable_block_spec(seg: torch.Tensor, hp_seg: torch.Tensor,
                           cfg: V757Config) -> torch.Tensor:
     """Band spectra ``[..., FRAME_BLOCK, n_bins]`` of the block's frames
-    from ``seg``, ``hp_seg``, ``trend_seg [..., window + FRAME_BLOCK - 1]``
-    (raw samples from the block's first frame, their block-resumable
-    high-pass, its trend; for NONE detrend `seg` in all three).
+    from ``seg`` and ``hp_seg [..., window + FRAME_BLOCK - 1]`` (raw
+    samples from the block's first frame and their block-resumable
+    high-pass; for NONE detrend `seg` in both).
 
     Every product here sees the same operand shapes, and freshly allocated
     operands, wherever the block sits in the stream, so an online tick
     that recomputes its block reproduces the one-shot run's values bitwise.
     The sliding branch computes bins from `_gd_lo` (those below hold
     ``-delta DFT(taper alpha^j)``, never read); the framed branch takes
-    kernel B3 on the card.
+    kernels F1 (EHLERS) and B3 on the card. F1 computes each sample
+    alone, so a block's frames do not depend on where it sits either.
     """
-    n, fb = cfg.window, FRAME_BLOCK
-    n_bins = _n_bins(cfg)
-    ehlers = cfg.detrend == DetrendMode.EHLERS
     if _use_sliding(cfg, 1, seg.device, _rows(seg)):
-        spec = sliding_band_spec(hp_seg, n, n_bins, cfg.taper, chunk=fb, pin=True,
-                                 k_lo=_gd_lo(cfg))
-        if ehlers:
-            spec = _minus_rank1(spec, _ehlers_delta(seg, trend_seg, cfg, fb), cfg)
-        return spec
-    windows = hp_seg.unfold(-1, n, 1)[..., :fb, :]
-    if ehlers:   # into a new contiguous buffer (B3 takes no strided view)
-        aj = _rank1_tables(n, n_bins, int(cfg.taper), cfg.trend_period, seg.device)[0]
-        out = _ehlers_delta(seg, trend_seg, cfg, fb)[..., None] * aj
-        windows = torch.sub(windows, out, out=out)
-    else:
-        windows = _fresh(windows)
-    if cfg.taper != WindowType.NONE:
-        windows.mul_(_taper(n, int(cfg.taper), windows.device))
-    return band_dft(windows, n_bins)
+        return _sliding_spec(seg, hp_seg, cfg, chunk=FRAME_BLOCK, pin=True)
+    return band_dft(_tapered_frames(seg, cfg, 1, hp_seg), _n_bins(cfg))
 
 
-def _resumable_hp(series: torch.Tensor, cfg: V757Config):
-    """(hp, trend) of the resumable stage: the block-resumable Ehlers
-    filter, or the series itself for NONE detrend."""
+def _resumable_hp(series: torch.Tensor, cfg: V757Config) -> torch.Tensor:
+    """The resumable stage's high-pass: the block-resumable Ehlers filter,
+    or the series itself for NONE detrend."""
     if cfg.detrend == DetrendMode.EHLERS:
-        hp = ehlers_highpass_blocked(series, cfg.trend_period, block=FRAME_BLOCK)
-        return hp, series - hp
+        return ehlers_highpass_blocked(series, cfg.trend_period, block=FRAME_BLOCK)
     if cfg.detrend == DetrendMode.NONE:
-        return series, series
+        return series
     raise ValueError(f"resumable v757 supports EHLERS/NONE detrend, got {cfg.detrend!r}")
 
 
-def _band_spec_resumable(series: torch.Tensor, hp: torch.Tensor, trend: torch.Tensor,
+def _band_spec_resumable(series: torch.Tensor, hp: torch.Tensor,
                          cfg: V757Config) -> torch.Tensor:
     """One-shot spectra ``[..., T, n_bins]`` through the canonical blocks
     (from the series and its `_resumable_hp`), one `_resumable_block_spec`
@@ -259,7 +248,7 @@ def _band_spec_resumable(series: torch.Tensor, hp: torch.Tensor, trend: torch.Te
     nblk = -(-t_frames // fb)
     seg_len = n + fb - 1
     short = (nblk - 1) * fb + seg_len - series.shape[-1]
-    xs = [torch.nn.functional.pad(x, (0, short)) for x in (series, hp, trend)]
+    xs = [torch.nn.functional.pad(x, (0, short)) for x in (series, hp)]
     blocks = [_resumable_block_spec(*(_fresh(x[..., k * fb:k * fb + seg_len]) for x in xs), cfg)
               for k in range(nblk)]
     return torch.cat(blocks, dim=-2)[..., :t_frames, :]
